@@ -1,0 +1,158 @@
+"""RenderSession: build + trace under one object (port of
+hagrid_tpu/render/session.py, packet structure).
+
+Owns the current packet grid, rebuilds it per frame at the frame-1
+capacity and dims (no host sync after the first frame), and traces camera
+waves with the planned sweep. The sweep's block budget is calibrated once
+per wave shape off the timed path (one host read per probe); calibrated
+frames read nothing back, and overflow stays a device flag that
+`poll_overflow` reads at frame boundaries.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import sys
+
+import numpy as np
+import torch
+
+from ..core.types import Hits, Rays, Triangles
+from ..grid import packet
+from ..ops.sweep_trace import trace_sweep
+
+# Ceiling on the calibrated block budget: the frame's transient arrays
+# grow with it (gidx 128 B/block, forward-fill scans, tile_of/tminb).
+_BMAX_CAP = 1 << 20
+# Calibration growth steps before giving up (each grows >= the margin).
+_CAL_TRIES = 6
+
+
+def _rung(x: int, base: int) -> int:
+    """Round x up to base * {1, 1.5} * 2^k (1024 -> 1536 -> 2048 -> 3072
+    -> 4096 ...): a geometric ladder keeps the distinct budgets per wave
+    class few, at <= 33% slack."""
+    u = max(1, -(-x // base))
+    k = max(0, (u - 1).bit_length() - 1)
+    for g in (1 << k, 3 << max(k - 1, 0), 2 << k, 3 << k):
+        if g >= u:
+            return g * base
+    return (4 << k) * base
+
+
+@dataclasses.dataclass
+class RenderSession:
+    structure: str
+    grid: packet.PacketGrid | None
+    bbox: tuple | None = None  # host-side scene bounds (warm rebuilds)
+    # Device bool: OR of the sweep's overflow flags since session start.
+    trace_overflow: torch.Tensor | None = None
+    # Calibrated block budget per wave key.
+    _bmax_cal: dict = dataclasses.field(default_factory=dict)
+    # Per-wave-key accumulated overflow flags (device bools).
+    _ovf: dict = dataclasses.field(default_factory=dict)
+
+    @staticmethod
+    def create(tris: Triangles, structure: str = "packet", verts=None,
+               bbox_margin: float = 0.0) -> "RenderSession":
+        """verts: optional host vertex array; gives the build its bounds
+        without a device read. bbox_margin: fraction of the scene extent
+        added on every side of the session bbox, which warm rebuilds
+        reuse (geometry that moves outside it is clamped into boundary
+        cells, and hits can be missed)."""
+        if structure != "packet":
+            raise ValueError(f"structure {structure!r} is not ported; "
+                             f"only 'packet' is")
+        s = RenderSession(structure=structure, grid=None)
+        if verts is not None and len(verts):
+            v = np.asarray(verts, np.float32)
+            lo, hi = v.min(0), v.max(0)
+            pad = (hi - lo) * np.float32(bbox_margin)
+            s.bbox = (lo - pad, hi + pad)
+        s.rebuild(tris)
+        return s
+
+    def rebuild(self, tris: Triangles):
+        """Per-frame rebuild; frames after the first reuse frame 1's
+        capacity and dims and run with no host synchronisation."""
+        kw = dict(bbox=self.bbox)
+        if self.grid is not None:
+            kw.update(ref_capacity=self.grid.ref_capacity,
+                      dims3=self.grid.dims3, check=False)
+        self.grid = packet.build_packet(tris, **kw)
+        if self.bbox is None:
+            self.bbox = (self.grid.bbox_lo.cpu().numpy(),
+                         self.grid.bbox_hi.cpu().numpy())
+        return self.grid.total_refs
+
+    def trace(self, rays: Rays, any_hit: bool = False,
+              coherent: bool = False, cal_key=None) -> Hits:
+        """Trace a wave; coherent=True for camera-ordered waves (the only
+        ported kind). cal_key distinguishes wave kinds of one shape that
+        need separate budgets."""
+        key = (any_hit, coherent, rays.count, cal_key)
+        bmax = self._bmax_cal.get(key)
+        if bmax is None:
+            bmax = self._calibrate(key, rays, any_hit, coherent)
+        hits, ovf = trace_sweep(self.grid, rays, any_hit=any_hit,
+                                coherent=coherent, bmax=bmax,
+                                return_overflow=True)
+        prev = self._ovf.get(key)
+        self._ovf[key] = ovf if prev is None else prev | ovf
+        self.trace_overflow = ovf if self.trace_overflow is None \
+            else self.trace_overflow | ovf
+        return hits
+
+    def _calibrate(self, key, rays: Rays, any_hit: bool, coherent: bool):
+        """Budget calibration, once per wave shape and off any timed
+        frame (one host read per probe): probe with the default budget,
+        set bmax = demand * margin on the rung ladder, and re-probe until
+        the wave completes (its own overflow flag clear)."""
+        margin = 1.3
+        bmax = None                         # first probe: default budget
+        for _ in range(_CAL_TRIES):
+            _, ovf, demand = trace_sweep(
+                self.grid, rays, any_hit=any_hit, coherent=coherent,
+                bmax=bmax, return_overflow=True, return_demand=True)
+            ovf_h, d = bool(ovf), int(demand[0])
+            want = _rung(int(d * margin), 1024)
+            if bmax is not None and not ovf_h:
+                # Complete under the current budget: keep it unless it is
+                # more than two growth steps above what demand asks for.
+                if bmax <= max(want * 2, 2048):
+                    break
+                bmax = want
+                continue
+            grow = max(want, _rung(int((bmax or 0) * 3 // 2), 1024))
+            if grow > _BMAX_CAP:
+                print(f"WARNING: sweep demand ({d} blocks) needs a budget "
+                      f"beyond the {_BMAX_CAP}-block cap; the wave will "
+                      f"trace incomplete (flagged)", file=sys.stderr)
+                bmax = _BMAX_CAP
+                break
+            bmax = grow
+        self._bmax_cal[key] = bmax
+        return bmax
+
+    def poll_overflow(self, recalibrate: bool = True) -> bool:
+        """Read the accumulated overflow flags (one host sync; call at
+        frame boundaries). With recalibrate=True, grow each offending
+        wave's budget one step (x2 on the ladder) and clear its flag.
+        Returns the OR of the flags."""
+        if not self._ovf:
+            return False
+        flags = {k: bool(v) for k, v in self._ovf.items()}
+        any_ovf = any(flags.values())
+        if any_ovf and recalibrate:
+            for key, v in flags.items():
+                bmax = self._bmax_cal.get(key)
+                if not v or bmax is None:
+                    continue
+                self._bmax_cal[key] = min(_rung(bmax * 2, 1024), _BMAX_CAP)
+                del self._ovf[key]
+            self.trace_overflow = None
+        return any_ovf
+
+    def describe(self) -> str:
+        g = self.grid
+        return f"packet dims3={g.dims3} ref_capacity={g.ref_capacity}"
