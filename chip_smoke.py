@@ -6,17 +6,29 @@
 Phases, one line each (any failure exits non-zero before the result):
 1. the card (nvidia-smi name and power limit) and the environment;
 2. build of the CUDA kernels from hagrid_tpu_torch/csrc (nvcc, sm_90a);
-3. the sweep kernel against its plain PyTorch version on the card: the
-   Sponza-scale scene's round-0 stream of a 1024x1024 frame (gather call
-   and pre-gathered call) and a random stream, with both times;
+3. the closest-hit sweep kernel against its plain PyTorch version on the
+   card: the Sponza-scale scene's round-0 stream of a 1024x1024 frame
+   (gather call and pre-gathered call) and a random stream, with both
+   times, the blocks the early-out skipped and the kernel's bound;
 4. the main path at full size: RenderSession.create, 3 warm rebuilds,
    1024x1024 block-order primaries, coherent trace (times on the card);
 5. correctness: 4096 sampled rays against the brute-force oracle on the
    card, and a 128x128 eye-light render against the oracle's render and
    the JAX package's dhash;
-6. with --profile only: torch.profiler over the warm frame and the warm
-   rebuild (device time by op, device busy and idle share against the host
-   wall time of synced runs); the full per-op list goes to PATH if given.
+6. with --profile only, run last: torch.profiler over the warm frame, the
+   warm rebuild, one AO wave, render_ao and ambient_occlusion (device
+   time by op, device busy and idle share against the host wall time of
+   synced runs); the full per-op list goes to PATH if given;
+7. the any-hit sweep kernel (K3) against its plain version: the round-0
+   stream of the first AO wave of the Sponza frame (4 samples' shape,
+   max_dist 0.1 x the largest extent, origin-sorted, binned) and a random
+   stream with finite tmax; hit/miss must agree exactly;
+8. the incoherent slice at full width through the user's entry points:
+   render_ao 1024x1024 x 4 samples, one shadow wave, path_trace 512x512
+   x 1 spp x 4 bounces (times on the card, calibrated budgets, overflow,
+   kernel launches);
+9. correctness on the card: 4096 sampled AO, shadow and path-bounce-1
+   rays against the brute-force oracle, and the AO image's mean.
 The last two lines are the kernels' JSON record and
 {"ok": true, "device": {...}}. Needs a CUDA device; imports no JAX.
 """
@@ -37,9 +49,13 @@ from hagrid_tpu_torch.core.camera import block_index, primary_rays
 from hagrid_tpu_torch.core.types import Triangles
 from hagrid_tpu_torch.grid.packet import build_packet, rays_to_x
 from hagrid_tpu_torch.io.image import dhash, hamming, shade_eyelight
-from hagrid_tpu_torch.ops import _build
+from hagrid_tpu_torch.ops import _build, sortrays
+from hagrid_tpu_torch.ops import sweep_kernel as sk
 from hagrid_tpu_torch.ops.sweep_kernel import sweep_blocks, sweep_blocks_plain
-from hagrid_tpu_torch.ops.sweep_trace import first_round_stream
+from hagrid_tpu_torch.ops.sweep_trace import _BIG_BITS, first_round_stream
+from hagrid_tpu_torch.render import integrators
+from hagrid_tpu_torch.render.sampling import (cosine_hemisphere,
+                                              hit_points_normals)
 from hagrid_tpu_torch.render.session import RenderSession
 
 # tests/test_golden.py pins this dhash for the 128x128 Sponza eye-light
@@ -56,6 +72,25 @@ KERNEL_SOURCE = "hagrid_tpu_torch/csrc/sweep.cu"
 # (K1).
 REPLACES = ("hagrid_tpu/ops/sweep_trace.py:248 (K2, _make_kernel_dma); "
             "hagrid_tpu/ops/sweep_trace.py:210 (K1, _make_kernel)")
+REPLACES_ANYHIT = ("hagrid_tpu/ops/sweep_trace.py:132-133,179-180 (K3, the "
+                   "any_hit=True instances of K1/K2)")
+# FP32 operations per ray-ref pair, counted from test_ref in csrc/sweep.cu:
+# 5 (det) + 6 (t*det) + 11 (u*det) + 11 (v*det) + 1 division + 3 (t, u, v)
+# + 2 (u+v, 1-(u+v)) + 1 fabs + 7 compares (u, v, 1-u-v >= 0, |det| >
+# 1e-12, t > tmin, t < best, t == best); any hit adds t < tmax.
+OPS_PER_PAIR = {False: 47, True: 48}
+REFS_PER_BLOCK = 768
+# One H100 SXM (NVIDIA's data sheet, at 700 W): FP32 outside the tensor
+# cores, and HBM3. The peak counts an FMA as 2 operations; the kernel is
+# built with -fmad=false, so each of its operations is one instruction,
+# issued at half that rate (the second bound printed).
+FP32_PEAK = 67e12
+FP32_ISSUE = FP32_PEAK / 2
+HBM_RATE = 3.35e12
+AO_SIZE, AO_SAMPLES = 1024, 4
+LIGHT = (15.0, 14.0, 6.0)       # inside the closed 30 x 15 x 12 hall
+PATH_SIZE, PATH_BOUNCES = 512, 4
+DEV = "cuda"
 
 
 class SmokeFailure(Exception):
@@ -92,17 +127,23 @@ def cuda_ms(fn, iters, warmup=1):
     return start.elapsed_time(end) / iters
 
 
+def swept_rays(tile_of, n_cols, tile):
+    """bool[nt * tile]: the rays of tiles that own at least one block."""
+    nt = n_cols // tile - 1
+    swept = torch.zeros(nt + 1, dtype=torch.bool, device=tile_of.device)
+    swept[tile_of.long()] = True
+    return swept[:nt].repeat_interleave(tile)
+
+
 def compare_sweeps(name, got, ref, tile_of):
     """Kernel vs plain on one stream: ids equal on >= 99.99% of the rays
     of swept tiles (the plain version ignores the early-out, which can
     only matter on exact-t ties at a threshold), t within rtol 1e-5 where
     the ids agree. Returns max |dt| over rays with equal hit ids."""
-    nt = got[0].numel() // TILE - 1
-    swept = torch.zeros(nt + 1, dtype=torch.bool, device=tile_of.device)
-    swept[tile_of.long()] = True
-    rays = swept[:nt].repeat_interleave(TILE)
-    t_k, id_k = got[0][:nt * TILE][rays], got[1][:nt * TILE][rays]
-    t_p, id_p = ref[0][:nt * TILE][rays], ref[1][:nt * TILE][rays]
+    rays = swept_rays(tile_of, got[0].numel(), TILE)
+    n = rays.numel()
+    t_k, id_k = got[0][:n][rays], got[1][:n][rays]
+    t_p, id_p = ref[0][:n][rays], ref[1][:n][rays]
     same = id_k == id_p
     agree = float(same.float().mean()) if same.numel() else 1.0
     hit = same & (id_k >= 0)
@@ -117,25 +158,30 @@ def compare_sweeps(name, got, ref, tile_of):
     return max_err
 
 
-def random_stream(grid, device, nt=64, seed=0):
+def random_stream(grid, device, nt=64, seed=0, tile=TILE, any_hit=False):
     """(xt, gidx, tile_of, tminb) of a random sweep over `grid`: random
     rays inside the scene box, tiles with 0..3 blocks, dead rays and dead
     tiles, random units including the dead unit, unused blocks at the
-    end, never-skip and random early-out thresholds."""
+    end, never-skip and random early-out thresholds. any_hit: a third of
+    the rays get a finite tmax (0.5-20) and every threshold is the
+    any-hit one (the largest float below BIG)."""
     rng = np.random.default_rng(seed)
-    n_cols = (nt + 1) * TILE
+    n_cols = (nt + 1) * tile
     lo = grid.bbox_lo.cpu().numpy()
     hi = grid.bbox_hi.cpu().numpy()
     org = rng.uniform(lo, hi, (n_cols, 3)).astype(np.float32)
     d = rng.normal(size=(n_cols, 3)).astype(np.float32)
     d /= np.linalg.norm(d, axis=1, keepdims=True)
+    tmax = np.full(n_cols, np.inf, np.float32)
+    if any_hit:
+        fin = rng.random(n_cols) < 0.33
+        tmax[fin] = rng.uniform(0.5, 20, n_cols)[fin]
     t = lambda a: torch.as_tensor(a, device=device)  # noqa: E731
-    x = rays_to_x(t(org), t(d), t(np.zeros(n_cols, np.float32)),
-                  t(np.full(n_cols, np.inf, np.float32)))
+    x = rays_to_x(t(org), t(d), t(np.zeros(n_cols, np.float32)), t(tmax))
     xt = x.t().contiguous()
     seed_t = np.where(rng.random(n_cols) < 0.1, -3e38, 3e38)
-    seed_t[rng.random(nt + 1).repeat(TILE) < 0.1] = -3e38   # dead tiles
-    seed_t[nt * TILE:] = -3e38
+    seed_t[rng.random(nt + 1).repeat(tile) < 0.1] = -3e38   # dead tiles
+    seed_t[nt * tile:] = -3e38
     xt[14] = t(seed_t.astype(np.float32))
     tile_of = np.concatenate([np.repeat(np.arange(nt),
                                         rng.integers(0, 4, nt)),
@@ -144,23 +190,168 @@ def random_stream(grid, device, nt=64, seed=0):
     gidx = rng.integers(0, grid.cols.shape[0] // 4, nb * 32)
     thr = rng.uniform(0, 20, nb).astype(np.float32).view(np.int32)
     tminb = np.where(rng.random(nb) < 0.7, 0, thr)
+    if any_hit:
+        tminb[:] = _BIG_BITS - 1
     return (xt, t(gidx.astype(np.int32)), t(tile_of),
             t(tminb.astype(np.int32)))
 
 
-def both_sweeps(xt, cols, gidx, tile_of, tminb):
-    args = (xt, cols, gidx, tile_of, tminb, TILE)
-    got, ref = sweep_blocks(*args), sweep_blocks_plain(*args)
+def both_sweeps(xt, cols, gidx, tile_of, tminb, tile=TILE, any_hit=False):
+    args = (xt, cols, gidx, tile_of, tminb, tile)
+    got = sweep_blocks(*args, any_hit=any_hit)
+    ref = sweep_blocks_plain(*args, any_hit=any_hit)
     torch.cuda.synchronize()
     return got, ref, args
 
 
-def times(args, card, what):
-    ms = cuda_ms(lambda: sweep_blocks(*args), iters=20, warmup=2)
-    plain_ms = cuda_ms(lambda: sweep_blocks_plain(*args), iters=3)
-    print(f"[kernel] {what} at Sponza 1024^2 round 0: kernel {ms:.3f} ms, "
-          f"plain {plain_ms:.3f} ms ({card})", flush=True)
+def times(args, card, what, any_hit=False, plain_iters=3):
+    ms = cuda_ms(lambda: sweep_blocks(*args, any_hit=any_hit), iters=20,
+                 warmup=2)
+    plain_ms = cuda_ms(lambda: sweep_blocks_plain(*args, any_hit=any_hit),
+                       iters=plain_iters, warmup=0)
+    print(f"[kernel] {what}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms "
+          f"({card})", flush=True)
     return ms, plain_ms
+
+
+def bound(args, any_hit, what):
+    """The least time the card could take for this stream: the larger of
+    the FP32 operations of the pairs the kernel actually sweeps (live
+    blocks less the blocks its early-out skips, counted by the kernel)
+    over the FP32 peak, and the bytes the function must move (xt, the
+    block tables and the distinct units read once, the outputs written
+    once) over the HBM rate. The pairs include dead lanes (padding refs
+    and dead rays) and, for any hit, rays that already hit inside a block
+    that was not skipped. Returns a dict of the counts, the bound and the
+    operations' time at the non-FMA issue rate."""
+    xt, cols, gidx, tile_of, tminb, tile = args
+    nt = xt.shape[1] // tile - 1
+    skipped = torch.zeros(nt, dtype=torch.int32, device=xt.device)
+    sweep_blocks(*args, any_hit=any_hit, skipped=skipped)
+    live_blocks = tile_of < nt
+    live = int(live_blocks.sum())
+    skip = int(skipped.sum())
+    pairs = (live - skip) * REFS_PER_BLOCK * tile
+    units = gidx.reshape(-1, 32)[live_blocks].unique().numel()
+    nbytes = (xt.numel() * 4 + units * cols.shape[1] * 4 * 4
+              + (gidx.numel() + 2 * tile_of.numel()) * 4
+              + 4 * xt.shape[1] * 4)
+    ops_ms = pairs * OPS_PER_PAIR[any_hit] / FP32_PEAK * 1e3
+    issue_ms = pairs * OPS_PER_PAIR[any_hit] / FP32_ISSUE * 1e3
+    bytes_ms = nbytes / HBM_RATE * 1e3
+    out = dict(live_blocks=live, blocks_skipped=skip, pairs=pairs,
+               bytes=nbytes, bound_ms=max(ops_ms, bytes_ms),
+               bound_by="operations" if ops_ms >= bytes_ms else "bytes",
+               bound_ms_no_fma=max(issue_ms, bytes_ms))
+    print(f"[bound] {what}: {live} live blocks, {skip} skipped by the "
+          f"early-out, {pairs} pairs swept x {OPS_PER_PAIR[any_hit]} FP32 "
+          f"ops = {ops_ms:.4f} ms at {FP32_PEAK / 1e12:.0f} TFLOP/s; "
+          f"{nbytes} bytes = {bytes_ms:.4f} ms at {HBM_RATE / 1e12:.2f} "
+          f"TB/s; bound {out['bound_ms']:.4f} ms by {out['bound_by']}; at "
+          f"the non-FMA issue rate {FP32_ISSUE / 1e12:.1f} T/s "
+          f"{out['bound_ms_no_fma']:.4f} ms", flush=True)
+    return out
+
+
+def tri_rows(cols, n_tris):
+    """f32[n_tris, 20]: each triangle's coefficient row of the linear
+    Moller-Trumbore form, taken from the grid's group rows (every ref of
+    a tri carries the same row; zero rows are padding)."""
+    rows = cols[:, :120].reshape(-1, 20)
+    rows = rows[rows[:, :16].abs().sum(1) > 0]
+    table = torch.zeros((n_tris, 20), dtype=torch.float32, device=cols.device)
+    table[rows[:, 16].long()] = rows
+    return table
+
+
+def linear_hit(x, g):
+    """The kernel's acceptance test (test_ref in csrc/sweep.cu, with the
+    any-hit t < tmax) of rays x f32[16, k] against coefficient rows
+    g f32[k, 20], op for op: (ok, t)."""
+    ox, oy, oz, dx, dy, dz, mx, my, mz = x[1:10]
+    n0, n1, n2, b0, b1, b2, c0, c1, c2, d0, d1, d2, e0, e1, e2, f = g[:, :16].t()
+    det = dx * n0 + dy * n1 + dz * n2
+    tt = f - (ox * n0 + oy * n1 + oz * n2)
+    uu = mx * b0 + my * b1 + mz * b2 + dx * c0 + dy * c1 + dz * c2
+    vv = mx * d0 + my * d1 + mz * d2 + dx * e0 + dy * e1 + dz * e2
+    inv = 1.0 / det
+    t, u, v = tt * inv, uu * inv, vv * inv
+    ok = ((u >= 0) & (v >= 0) & (1.0 - (u + v) >= 0) & (det.abs() > 1e-12)
+          & (t > x[12]) & (t < x[13]))
+    return ok, t
+
+
+def compare_anyhit(name, got, ref, args, rows):
+    """Any-hit kernel vs plain on one stream, over the rays of swept
+    tiles: hit/miss must be equal (a tile is skipped only once every live
+    ray has hit). The kernel keeps the closest hit of the blocks it swept,
+    so each kernel hit must be a genuine hit: the kernel's own acceptance
+    test recomputed for (ray, tri) accepts it at exactly the kernel's t,
+    inside (tmin, tmax), and no closer than the plain version's closest t.
+    Returns the max |hit_kernel - hit_plain| (0 or 1)."""
+    xt, tile = args[0], args[5]
+    rays = swept_rays(args[3], xt.shape[1], tile)
+    n = rays.numel()
+    hit_k = got[1][:n][rays] >= 0
+    hit_p = ref[1][:n][rays] >= 0
+    n_diff = int((hit_k != hit_p).sum())
+    t_k, t_p = got[0][:n][rays][hit_k], ref[0][:n][rays][hit_k]
+    x = xt[:, :n][:, rays][:, hit_k]
+    ok, t = linear_hit(x, rows[got[1][:n][rays][hit_k].long()])
+    genuine = bool((ok & (t == t_k)).all())
+    not_closer = bool((t_k >= t_p).all())
+    print(f"[kernel] {name}: {int(rays.sum())} rays in swept tiles, "
+          f"{int(hit_k.sum())} kernel hits, {int(hit_p.sum())} plain hits, "
+          f"hit/miss differ on {n_diff}; every kernel hit genuine at its t "
+          f"inside (tmin, tmax): {genuine}; t >= plain t: {not_closer} "
+          f"({int((t_k > t_p).sum())} behind the closest)", flush=True)
+    check(n_diff == 0, f"{name}: hit/miss differs on {n_diff} rays")
+    check(genuine, f"{name}: a kernel hit is not genuine")
+    check(not_closer, f"{name}: a kernel hit is closer than the closest")
+    return float(n_diff > 0)
+
+
+def reset_launches():
+    for k in sk.launches:
+        sk.launches[k] = 0
+
+
+def sample(n, k=4096, seed=0):
+    return torch.as_tensor(np.random.default_rng(seed).choice(
+        n, min(k, n), replace=False), device=DEV)
+
+
+def check_anyhit_sample(name, wave, hits, tris):
+    """4096 sampled rays of an any-hit wave: hit/miss against the on-card
+    brute-force oracle on > 99.9% of them."""
+    idx = sample(wave.count)
+    want = oracle.any_hit(wave.take(idx), tris)
+    agree = float(((hits.tri_id[idx] >= 0) == want).float().mean())
+    print(f"[oracle] {name}: {idx.numel()} sampled rays, {int(want.sum())} "
+          f"blocked "
+          f"by the oracle, hit/miss agreement {agree:.5f}", flush=True)
+    check(agree > 0.999, f"{name}: hit/miss disagrees with the oracle")
+
+
+def check_closest_sample(name, wave, hits, tris):
+    """4096 sampled rays against the oracle's closest hit, with
+    tests/test_sweep_trace.py::_check's thresholds."""
+    idx = sample(wave.count)
+    want = oracle.closest_hit(wave.take(idx), tris)
+    got_id = hits.tri_id[idx]
+    got_hit, ref_hit = got_id >= 0, want.tri_id >= 0
+    t_close = torch.isclose(hits.t[idx], want.t, rtol=1e-3, atol=1e-5)
+    agree = float(((got_hit == ref_hit) & (~ref_hit | t_close))
+                  .float().mean())
+    both = got_hit & ref_hit
+    id_rate = float((got_id[both] == want.tri_id[both]).float().mean()) \
+        if bool(both.any()) else 1.0
+    print(f"[oracle] {name}: {idx.numel()} sampled rays, "
+          f"{int(ref_hit.sum())} hits, "
+          f"hit/miss+t agreement {agree:.5f}, id agreement {id_rate:.5f}",
+          flush=True)
+    check(agree > 0.999, f"{name}: hits disagree with the oracle")
+    check(id_rate > 0.995, f"{name}: tri ids disagree with the oracle")
 
 
 def profile(what, fn, card, path, runs=3):
@@ -205,6 +396,140 @@ def profile(what, fn, card, path, runs=3):
             out.writelines(f"{ms:.4f}\t{n}\t{k}\n" for ms, n, k in ops)
 
 
+def anyhit_phase(session, rays, hits, tris, card):
+    """Phase 7: the first AO sample's wave of the Sponza frame, traced
+    once through trace_sorted (which calibrates the "ao" budgets), then
+    its round-0 stream at those budgets, and a random stream with finite
+    tmax: the any-hit kernel against its plain version, both times, the
+    skip count and the bound."""
+    grid = session.grid
+    p, n, found = hit_points_normals(rays, hits, tris.n)
+    gen = torch.Generator(device=DEV).manual_seed(0)
+    max_dist = integrators.default_ao_distance(session)
+    wave = integrators.ao_rays(p, n, found, max_dist, gen)
+    t0 = time.perf_counter()
+    wave_hits = integrators.trace_sorted(session, wave, any_hit=True,
+                                         cal_key="ao")
+    torch.cuda.synchronize()
+    cal_s = time.perf_counter() - t0
+    bmax, rowmax = session._bmax_cal[(True, False, wave.count, "ao")]
+    srt, _ = sortrays.sort_rays(wave, grid.bbox_lo, grid.bbox_hi, bits=10,
+                                origin_major=True)
+    xt, gidx, tile_of, tminb, tile = first_round_stream(
+        grid, srt, any_hit=True, coherent=False, bmax=bmax, rowmax=rowmax)
+    nt = xt.shape[1] // tile - 1
+    print(f"[anyhit] AO wave 0 ({wave.count} rays, max_dist {max_dist:.4f},"
+          f" {int(found.sum())} live): calibration {cal_s:.2f} s, budgets "
+          f"({bmax}, {rowmax}); round-0 stream {int((tile_of < nt).sum())} "
+          f"blocks of {tile_of.numel()} budgeted, tile {tile}", flush=True)
+    got, ref, args = both_sweeps(xt, grid.cols, gidx, tile_of, tminb, tile,
+                                 any_hit=True)
+    rows = tri_rows(grid.cols, tris.count)
+    err = compare_anyhit("any-hit kernel (K3), Sponza AO wave 0 round 0",
+                         got, ref, args, rows)
+    ms, plain_ms = times(args, card, "any-hit kernel (K3) at Sponza AO wave "
+                         "0 round 0", any_hit=True, plain_iters=1)
+    b = bound(args, True, "any-hit sweep, Sponza AO wave 0 round 0")
+    del got, ref
+    rxt, rgidx, rtile_of, rtminb = random_stream(
+        grid, DEV, nt=64, seed=1, tile=tile, any_hit=True)
+    got_r, ref_r, rargs = both_sweeps(rxt, grid.cols, rgidx, rtile_of,
+                                      rtminb, tile, any_hit=True)
+    err_r = compare_anyhit("any-hit kernel (K3), random stream with finite "
+                           "tmax", got_r, ref_r, rargs, rows)
+    return dict(wave=wave, wave_hits=wave_hits, err=max(err, err_r), ms=ms,
+                plain_ms=plain_ms, bound=b)
+
+
+def slice_phase(session, cam, card):
+    """Phase 8: render_ao (1024^2 x 4 samples), one shadow wave toward
+    LIGHT and path_trace (512^2, 1 spp, 4 bounces), each first run once
+    (calibrating its budgets; poll_overflow then grows any that
+    overflowed), then timed with the launch counts from zero. Returns the
+    counts of the timed runs, the AO image and the timed calls."""
+    def gen():
+        return torch.Generator(device=DEV).manual_seed(0)
+
+    runs = dict(
+        render_ao=lambda: integrators.render_ao(
+            session, cam, AO_SIZE, AO_SIZE, seed=0, n_samples=AO_SAMPLES),
+        path_trace=lambda: integrators.path_trace(
+            session, cam, PATH_SIZE, PATH_SIZE, seed=0, spp=1,
+            max_bounces=PATH_BOUNCES))
+    t0 = time.perf_counter()
+    ao_img, prim = runs["render_ao"]()
+    prim_rays = primary_rays(cam, AO_SIZE, AO_SIZE, order="block",
+                             device=DEV)
+    runs["shadow"] = lambda: integrators.shadow(session, prim_rays, prim,
+                                                LIGHT)
+    runs["ambient_occlusion"] = lambda: integrators.ambient_occlusion(
+        session, prim_rays, prim, gen(), n_samples=AO_SAMPLES)
+    for what in ("shadow", "path_trace"):
+        runs[what]()
+    torch.cuda.synchronize()
+    grew = session.poll_overflow(recalibrate=True)
+    print(f"[slice] first runs (calibration) {time.perf_counter() - t0:.2f} "
+          f"s; overflow grown after them: {grew}", flush=True)
+    reset_launches()
+    ms = {what: cuda_ms(fn, iters=2, warmup=0) for what, fn in runs.items()}
+    torch.cuda.synchronize()
+    launches = dict(sk.launches)
+    ovf = session.poll_overflow(recalibrate=False)
+    n_ao = AO_SAMPLES * AO_SIZE * AO_SIZE
+    n_path = PATH_BOUNCES * PATH_SIZE * PATH_SIZE
+    print(f"[slice] render_ao {AO_SIZE}^2 x {AO_SAMPLES}: "
+          f"{ms['render_ao']:.3f} ms (primary + AO); ambient_occlusion "
+          f"alone {ms['ambient_occlusion']:.3f} ms = "
+          f"{n_ao / ms['ambient_occlusion'] / 1e3:.2f} secondary Mrays/s; "
+          f"shadow wave {ms['shadow']:.3f} ms = "
+          f"{AO_SIZE * AO_SIZE / ms['shadow'] / 1e3:.2f} Mrays/s; "
+          f"path_trace {PATH_SIZE}^2 x 1 spp x {PATH_BOUNCES} bounces "
+          f"{ms['path_trace']:.3f} ms = {n_path / ms['path_trace'] / 1e3:.2f}"
+          f" Mray slots/s ({card})", flush=True)
+    cal = {str(k): v for k, v in session._bmax_cal.items()}
+    print(f"[slice] calibrated (bmax, rowmax) per key (any_hit, coherent, "
+          f"rays, cal_key): {cal}; kernel launches in the timed runs "
+          f"{launches}; poll_overflow {ovf}", flush=True)
+    check(not ovf, "the timed incoherent runs overflowed their budgets")
+    check(launches["sweep_blocks_anyhit"] > 0,
+          "the timed runs did not launch the any-hit kernel")
+    check(launches["sweep_blocks"] > 0,
+          "the timed runs did not launch the closest-hit kernel")
+    return launches, ao_img, runs
+
+
+def correctness_phase(session, wave, wave_hits, rays, hits, cam, tris,
+                      ao_img):
+    """Phase 9: 4096 sampled rays of an AO wave and of a shadow wave
+    against oracle.any_hit, 4096 rays of path bounce 1 against
+    oracle.closest_hit (_check's thresholds), and the AO image's mean."""
+    check_anyhit_sample("AO wave 0", wave, wave_hits, tris)
+    p, n, found = hit_points_normals(rays, hits, tris.n)
+    sh, _ = integrators.shadow_rays(p, n, found, LIGHT)
+    sh_hits = integrators.trace_sorted(session, sh, any_hit=True,
+                                       cal_key="shadow")
+    check_anyhit_sample("shadow wave", sh, sh_hits, tris)
+    # Path bounce 1, made as path_trace makes it.
+    gen = torch.Generator(device=DEV).manual_seed(0)
+    npix = PATH_SIZE * PATH_SIZE
+    jitter = torch.rand((npix, 2), generator=gen, device=DEV)
+    prim = primary_rays(cam, PATH_SIZE, PATH_SIZE, jitter=jitter,
+                        order="block", device=DEV)
+    ph = session.trace(prim, coherent=True)
+    p, nrm, found = hit_points_normals(prim, ph, tris.n)
+    d = cosine_hemisphere(nrm, gen)
+    b1 = integrators._spawn(p, nrm, d, 0.0,
+                            torch.where(found, float("inf"), 0.0))
+    b1_hits = integrators.trace_sorted(session, b1, cal_key="path")
+    check_closest_sample("path bounce 1", b1, b1_hits, tris)
+    mean = float(ao_img.mean())
+    print(f"[image] AO {AO_SIZE}^2 x {AO_SAMPLES} mean {mean:.4f}",
+          flush=True)
+    check(0.0 < mean < 1.0, f"AO image mean {mean} outside (0, 1)")
+    check(not session.poll_overflow(recalibrate=False),
+          "the correctness waves overflowed")
+
+
 def main(profile_path=False) -> int:
     if not torch.cuda.is_available():
         print("FAIL: torch.cuda.is_available() is false; this smoke run "
@@ -224,7 +549,8 @@ def main(profile_path=False) -> int:
     t0 = time.perf_counter()
     _build.load()
     ptxas = [ln.strip() for ln in _build.last_build["log"].splitlines()
-             if "registers" in ln or "spill" in ln]
+             if "registers" in ln or "spill" in ln
+             or "entry function" in ln]
     print(f"[build] {_build.last_build['path']} in "
           f"{time.perf_counter() - t0:.1f} s (nvcc "
           f"{_build.last_build['seconds']:.1f} s); ptxas: "
@@ -241,14 +567,15 @@ def main(profile_path=False) -> int:
 
     # 3. kernel against plain on the card
     grid = build_packet(tris)
-    xt, gidx, tile_of, tminb = first_round_stream(grid, rays, tile=TILE)
+    xt, gidx, tile_of, tminb, _ = first_round_stream(grid, rays, tile=TILE)
     print(f"[kernel] Sponza round-0 stream: "
           f"{int((tile_of < rays.count // TILE).sum())} blocks of "
           f"{tile_of.numel()} budgeted, dims3 {grid.dims3}", flush=True)
     got, ref, args = both_sweeps(xt, grid.cols, gidx, tile_of, tminb)
     err = compare_sweeps("gather call (K2), Sponza round 0", got, ref,
                          tile_of)
-    ms, plain_ms = times(args, card, "gather call")
+    ms, plain_ms = times(args, card, "gather call at Sponza 1024^2 round 0")
+    bound_k12 = bound(args, False, "closest-hit sweep, Sponza 1024^2 round 0")
     # The pre-gathered (K1) call: the gathered stream as cols, gidx = arange.
     g_round = grid.cols.reshape(-1, 4, 128)[gidx.long()].reshape(-1, 128)
     seq = torch.arange(gidx.numel(), dtype=torch.int32, device=dev)
@@ -257,7 +584,8 @@ def main(profile_path=False) -> int:
                           ref, tile_of)
     check(all(torch.equal(a, b) for a, b in zip(got1, got)),
           "pre-gathered call differs from the gather call")
-    ms1, plain_ms1 = times(args1, card, "pre-gathered call")
+    ms1, plain_ms1 = times(args1, card,
+                           "pre-gathered call at Sponza 1024^2 round 0")
     rxt, rgidx, rtile_of, rtminb = random_stream(grid, dev)
     got_r, ref_r, _ = both_sweeps(rxt, grid.cols, rgidx, rtile_of, rtminb)
     err_r = compare_sweeps("random stream (dead tiles, unused blocks)",
@@ -265,7 +593,7 @@ def main(profile_path=False) -> int:
     del g_round, got, ref, got1, got_r, ref_r, args, args1
 
     # 4. main path: every count from zero, then the user's entry points
-    sweep_blocks.launches = 0
+    reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     session = RenderSession.create(tris, structure="packet", verts=v)
@@ -277,14 +605,14 @@ def main(profile_path=False) -> int:
     session.trace(rays, coherent=True)          # calibrates the budget
     torch.cuda.synchronize()
     cal_s = time.perf_counter() - t0
-    before = sweep_blocks.launches
+    before = sk.launches["sweep_blocks"]
     frames = 5
     frame_ms = cuda_ms(lambda: session.trace(rays, coherent=True),
                        iters=frames, warmup=1)
     hits = session.trace(rays, coherent=True)
     torch.cuda.synchronize()
-    timed_launches = sweep_blocks.launches - before
-    launches = sweep_blocks.launches
+    timed_launches = sk.launches["sweep_blocks"] - before
+    launches = sk.launches["sweep_blocks"]
     ovf = session.poll_overflow(recalibrate=False)
     hit_frac = float((hits.tri_id >= 0).float().mean())
     print(f"[main] cold create {cold_s:.2f} s; warm rebuild "
@@ -304,20 +632,7 @@ def main(profile_path=False) -> int:
 
     # 5a. 4096 sampled rays against the oracle on the card, with
     # tests/test_sweep_trace.py::_check's thresholds
-    idx = torch.as_tensor(np.random.default_rng(0).choice(
-        rays.count, 4096, replace=False), device=dev)
-    want = oracle.closest_hit(rays.take(idx), tris)
-    got_id = hits.tri_id[idx]
-    got_hit, ref_hit = got_id >= 0, want.tri_id >= 0
-    t_close = torch.isclose(hits.t[idx], want.t, rtol=1e-3, atol=1e-5)
-    agree = float(((got_hit == ref_hit) & (~ref_hit | t_close))
-                  .float().mean())
-    both = got_hit & ref_hit
-    id_rate = float((got_id[both] == want.tri_id[both]).float().mean())
-    print(f"[oracle] 4096 sampled rays: hit/miss+t agreement {agree:.5f}, "
-          f"id agreement {id_rate:.5f}", flush=True)
-    check(agree > 0.999, "hits disagree with the oracle")
-    check(id_rate > 0.995, "tri ids disagree with the oracle")
+    check_closest_sample("primary frame", rays, hits, tris)
 
     # 5b. 128x128 eye-light render in block order, reassembled, held
     # against the oracle's render and the JAX package's
@@ -350,20 +665,49 @@ def main(profile_path=False) -> int:
     check(not session.poll_overflow(recalibrate=False),
           "golden render overflowed")
 
-    # 6. optional device-time breakdown
+    # 7. the any-hit kernel (K3) against its plain version
+    ao = anyhit_phase(session, rays, hits, tris, card)
+
+    # 8. the incoherent slice through the user's entry points
+    slice_launches, ao_img, slice_runs = slice_phase(session, cam, card)
+
+    # 9. correctness of the incoherent waves on the card
+    correctness_phase(session, ao["wave"], ao["wave_hits"], rays, hits, cam,
+                      tris, ao_img)
+
+    # 6. optional device-time breakdown, run last
     if profile_path is not False:
         for what, fn in (("frame", lambda: session.trace(rays, coherent=True)),
-                         ("warm rebuild", lambda: session.rebuild(tris))):
+                         ("warm rebuild", lambda: session.rebuild(tris)),
+                         ("AO wave", lambda: integrators.trace_sorted(
+                             session, ao["wave"], any_hit=True,
+                             cal_key="ao")),
+                         ("render_ao", slice_runs["render_ao"]),
+                         ("ambient_occlusion",
+                          slice_runs["ambient_occlusion"])):
             profile(what, fn, card, profile_path)
 
     # ms/plain_ms: the gather call (the main path's); *_pregathered: the
     # same kernel called K1's way in phase 3, which the main path never
-    # makes. launches: the main path's count.
-    kernels = [dict(name="sweep_blocks", route="cuda", source=KERNEL_SOURCE,
-                    replaces=REPLACES, launches=launches,
-                    max_abs_err=max(err, err1, err_r), ms=ms,
-                    plain_ms=plain_ms, ms_pregathered=ms1,
-                    plain_ms_pregathered=plain_ms1)]
+    # makes. launches: the main path's count (phase 4 for closest hit,
+    # phase 8 for any hit). No single PyTorch call computes the sweep:
+    # library_ms is null.
+    kernels = [
+        dict(name="sweep_blocks", route="cuda", source=KERNEL_SOURCE,
+             replaces=REPLACES, launches=launches,
+             max_abs_err=max(err, err1, err_r), ms=ms, plain_ms=plain_ms,
+             bound_ms=bound_k12["bound_ms"], bound_by=bound_k12["bound_by"],
+             library_ms=None, blocks_skipped=bound_k12["blocks_skipped"],
+             bound_ms_no_fma=bound_k12["bound_ms_no_fma"],
+             ms_pregathered=ms1, plain_ms_pregathered=plain_ms1),
+        dict(name="sweep_blocks_anyhit", route="cuda", source=KERNEL_SOURCE,
+             replaces=REPLACES_ANYHIT,
+             launches=slice_launches["sweep_blocks_anyhit"],
+             max_abs_err=ao["err"], ms=ao["ms"], plain_ms=ao["plain_ms"],
+             bound_ms=ao["bound"]["bound_ms"],
+             bound_by=ao["bound"]["bound_by"], library_ms=None,
+             blocks_skipped=ao["bound"]["blocks_skipped"],
+             bound_ms_no_fma=ao["bound"]["bound_ms_no_fma"])]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -14,6 +14,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from ..device import resolve
 from .types import Rays
 
 
@@ -57,9 +58,20 @@ def block_index(width: int, height: int, block: int = 32) -> np.ndarray:
     return gy * width + gx
 
 
+def block_pixels(width: int, height: int, device):
+    """(x, y) i32 pixel coordinates of ray i in block order, on `device`
+    (width and height multiples of 32)."""
+    b = 32
+    bpr = width // b
+    i = torch.arange(width * height, dtype=torch.int32, device=device)
+    bi = i // (b * b)
+    wx, wy = _morton_deinterleave(i % (b * b))
+    return (bi % bpr) * b + wx, (bi // bpr) * b + wy
+
+
 def primary_rays(cam: Camera, width: int, height: int, jitter=None,
                  order: str = "scanline", device=None) -> Rays:
-    """width*height primary rays on `device`.
+    """width*height primary rays on `device` (default: the card).
 
     order: "scanline" (y-major) or "block" (32x32 tiles, Morton within
     the tile; reassemble images with `block_index`). Falls back to
@@ -70,17 +82,12 @@ def primary_rays(cam: Camera, width: int, height: int, jitter=None,
     # f32 constants, as the reference rounds them.
     tan_half = float(np.float32(np.tan(np.radians(cam.fov_deg) * 0.5)))
     aspect = float(np.float32(width / height))
+    device = resolve(device)
     f32 = dict(dtype=torch.float32, device=device)
 
     if order == "block" and width % 32 == 0 and height % 32 == 0:
-        b = 32
-        bpr = width // b
-        i = torch.arange(width * height, dtype=torch.int32, device=device)
-        bi = i // (b * b)
-        within = i % (b * b)
-        wx, wy = _morton_deinterleave(within)
-        gx = ((bi % bpr) * b + wx).to(torch.float32)
-        gy = ((bi // bpr) * b + wy).to(torch.float32)
+        gx, gy = (c.to(torch.float32)
+                  for c in block_pixels(width, height, device))
     else:
         px = torch.arange(width, **f32)
         py = torch.arange(height, **f32)

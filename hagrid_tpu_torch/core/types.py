@@ -11,11 +11,16 @@ import dataclasses
 
 import torch
 
+from ..device import resolve
+
 INVALID_ID = -1
 
 
 def _f32(x, device=None) -> torch.Tensor:
-    return torch.as_tensor(x, dtype=torch.float32, device=device)
+    """x as f32 on `device`; with none, a tensor keeps its device and
+    anything else goes to the card."""
+    return torch.as_tensor(x, dtype=torch.float32,
+                           device=resolve(device, like=x))
 
 
 def cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -107,7 +112,8 @@ class Triangles:
 
     @staticmethod
     def from_mesh(vertices, faces, device=None) -> "Triangles":
-        """vertices f32[V,3], faces i32[T,3] -> Triangles."""
+        """vertices f32[V,3], faces i32[T,3] -> Triangles on `device`
+        (default: the vertices' device if a tensor, else the card)."""
         vertices = _f32(vertices, device)
         faces = torch.as_tensor(faces, dtype=torch.int64,
                                 device=vertices.device).reshape(-1, 3)

@@ -3,7 +3,8 @@
 The functions take numpy arrays (what `np.asarray` gives of the JAX
 package's jnp fields) and return the port's objects, so one grid or ray
 batch can be fed to both tracers: tracer parity is then held apart from
-build parity. Nothing here imports JAX.
+build parity. Nothing here imports JAX. With no `device`, the objects
+land on the card.
 """
 
 from __future__ import annotations
@@ -12,11 +13,12 @@ import numpy as np
 import torch
 
 from .core.types import Rays, Triangles
+from .device import resolve
 from .grid.packet import PacketGrid
 
 
 def _t(x, dtype, device):
-    return torch.as_tensor(np.array(x), dtype=dtype, device=device)
+    return torch.as_tensor(np.array(x), dtype=dtype, device=resolve(device))
 
 
 def triangles_from_numpy(v0, e1, e2, n, device=None) -> Triangles:

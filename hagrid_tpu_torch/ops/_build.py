@@ -87,7 +87,7 @@ def load():
         lib = ctypes.CDLL(str(build()))
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.hagrid_sweep.argtypes = [p, i, p, p, p, p, p, p, p, p, p, i, i,
-                                     p]
+                                     i, p, p]
         lib.hagrid_sweep.restype = i
         lib.hagrid_error_string.argtypes = [i]
         lib.hagrid_error_string.restype = ctypes.c_char_p

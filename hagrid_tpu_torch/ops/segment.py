@@ -46,6 +46,31 @@ def cumsum_i32(x: torch.Tensor, dim: int = 0) -> torch.Tensor:
     return torch.cumsum(x, dim=dim, dtype=torch.int32)
 
 
+def expand_by_counts(counts: torch.Tensor, capacity: int):
+    """Run-length expansion of per-source counts i32[N] into `capacity`
+    slots: (src, rank, valid, total) with src[j] the run slot j falls in,
+    rank[j] its offset within the run, valid[j] = j < total. A +1 marker
+    at every run start, prefix-summed, gives src (empty runs stack their
+    markers on one slot and the sum jumps past them); the run offsets
+    forward-fill by a delta scatter and a prefix sum. Slots past the total
+    get a clamped src and valid False; run starts at or past `capacity`
+    are dropped."""
+    dev = counts.device
+    j = torch.arange(capacity, dtype=torch.int32, device=dev)
+    if counts.shape[0] == 0:  # empty source (empty scenes)
+        return (torch.zeros((capacity,), dtype=torch.int32, device=dev), j,
+                torch.zeros((capacity,), dtype=torch.bool, device=dev),
+                torch.zeros((), dtype=torch.int32, device=dev))
+    counts = counts.to(torch.int32)
+    offsets = exclusive_scan(counts)
+    total = offsets[-1] + counts[-1]
+    src = (cumsum_i32(add_at_drop(capacity, offsets, 1)) - 1).clamp(
+        0, counts.shape[0] - 1)
+    d_off = torch.diff(offsets, prepend=offsets.new_zeros(1))
+    rank = j - cumsum_i32(add_at_drop(capacity, offsets, d_off))
+    return src, rank, j < total, total
+
+
 def sort_pairs(keys: torch.Tensor, *values: torch.Tensor):
     """STABLE ascending sort of keys, carrying values by the returned
     permutation. Returns (keys, *values). Stability decides the row order

@@ -1,6 +1,7 @@
 """The sweep kernel: every ray tile against its run of gathered 768-ref
-blocks, closest hit (CUDA: csrc/sweep.cu; replaces the TPU kernels
-hagrid_tpu/ops/sweep_trace.py::_make_kernel and ::_make_kernel_dma).
+blocks, closest hit or any hit (CUDA: csrc/sweep.cu; replaces the TPU
+kernels hagrid_tpu/ops/sweep_trace.py::_make_kernel and ::_make_kernel_dma
+and their any_hit=True instances).
 
 Inputs, as the planner (ops/sweep_trace.py) emits them:
 - xt f32[16, n_cols]: the rays' X matrix transposed (rows: 1, o, d,
@@ -17,9 +18,17 @@ Output (t f32, id i32, u f32, v f32), each [n_cols]: per ray of every tile
 with at least one block, the best hit better than its seed (t = BIG,
 id = -1, u = v = 0 where none). Ties on t go to the smaller id.
 
+any_hit=True also requires t < tmax (xt row 13) of every accepted pair;
+the planner then seeds the raw best and gives every block the threshold
+just below BIG, so the kernel stops sweeping a tile once all its rays hit.
+Its hit/miss equals the plain version's exactly; the t and id it keeps
+are those of the closest hit among the blocks it swept, which may lie
+behind the ray's closest hit.
+
 `sweep_blocks` runs the CUDA kernel for CUDA tensors and the plain
 version `sweep_blocks_plain` for CPU tensors; it counts kernel launches
-in `sweep_blocks.launches`.
+per instance in `launches` ("sweep_blocks" closest hit,
+"sweep_blocks_anyhit" any hit).
 """
 
 from __future__ import annotations
@@ -37,6 +46,9 @@ _COEFS = 20
 _BIG = 3e38
 _KEY_NONE = torch.iinfo(torch.int64).max
 _PAIRS_PER_CHUNK = 1 << 23   # ray-ref pairs the plain version holds at once
+
+# Kernel launches per instance, counted where the kernel is launched.
+launches = {"sweep_blocks": 0, "sweep_blocks_anyhit": 0}
 
 
 def _check(xt, cols, gidx, tile_of, tminb, tile):
@@ -72,12 +84,13 @@ def _ordered(bits: torch.Tensor) -> torch.Tensor:
     return torch.where(bits < 0, bits ^ 0x7FFFFFFF, bits)
 
 
-def sweep_blocks_plain(xt, cols, gidx, tile_of, tminb, tile):
+def sweep_blocks_plain(xt, cols, gidx, tile_of, tminb, tile, any_hit=False):
     """Plain PyTorch version: gather each block's refs, dense
     Moller-Trumbore in the kernel's linear form (same formulas, same
     acceptance), lexicographic (t, id) min per ray over the tile's
-    blocks. Ignores the early-out, which can only change a result on an
-    exact-t tie at a block's threshold."""
+    blocks. Ignores the early-out, which for closest hit can only change
+    a result on an exact-t tie at a block's threshold; for any hit it
+    returns each ray's closest hit in (tmin, tmax)."""
     nt = _check(xt, cols, gidx, tile_of, tminb, tile)
     n_cols = xt.shape[1]
     dev = xt.device
@@ -95,7 +108,7 @@ def sweep_blocks_plain(xt, cols, gidx, tile_of, tminb, tile):
         ray = (tile_of[blk].long()[:, None] * tile + lanes).reshape(-1)
         X = xt[:, ray].reshape(16, nb, 1, tile)
         ox, oy, oz, dx, dy, dz, mx, my, mz = X[1:10]
-        tmin, seed = X[12], X[14]
+        tmin, tmax, seed = X[12], X[13], X[14]
         ui = gidx.reshape(-1, UNITS_PER_BLOCK)[blk].long()
         g = units[ui].reshape(nb, 128, 128)[:, :, :_REFS_PER_ROW * _COEFS]
         g = g.reshape(nb, 128 * _REFS_PER_ROW, _COEFS, 1)
@@ -111,6 +124,8 @@ def sweep_blocks_plain(xt, cols, gidx, tile_of, tminb, tile):
         v = vv * inv
         edge = torch.minimum(torch.minimum(u, v), 1.0 - (u + v))
         ok = (edge >= 0.0) & (det.abs() > 1e-12) & (t > tmin) & (t < seed)
+        if any_hit:
+            ok = ok & (t < tmax)
         key = (_ordered(t.view(torch.int32)).to(torch.int64) << 32) \
             + idf.to(torch.int64)
         key = torch.where(ok, key, _KEY_NONE)
@@ -138,11 +153,17 @@ def sweep_blocks_plain(xt, cols, gidx, tile_of, tminb, tile):
     return out_t, out_id, out_u, out_v
 
 
-def sweep_blocks(xt, cols, gidx, tile_of, tminb, tile):
+def sweep_blocks(xt, cols, gidx, tile_of, tminb, tile, any_hit=False,
+                 skipped=None):
     """The sweep: the CUDA kernel for CUDA tensors, the plain version for
-    CPU tensors; anything else raises."""
+    CPU tensors; anything else raises. skipped: optional i32[nt] on the
+    card, to which the kernel adds each tile's count of blocks skipped by
+    the early-out (the plain version has no early-out and takes none)."""
     if xt.device.type == "cpu":
-        return sweep_blocks_plain(xt, cols, gidx, tile_of, tminb, tile)
+        if skipped is not None:
+            raise ValueError("the plain version skips no blocks")
+        return sweep_blocks_plain(xt, cols, gidx, tile_of, tminb, tile,
+                                  any_hit)
     if xt.device.type != "cuda":
         raise RuntimeError(f"no sweep kernel for device {xt.device}")
     nt = _check(xt, cols, gidx, tile_of, tminb, tile)
@@ -152,6 +173,10 @@ def sweep_blocks(xt, cols, gidx, tile_of, tminb, tile):
     tensors = (xt, cols, gidx, tile_of, tminb)
     if not all(x.is_contiguous() for x in tensors):
         raise ValueError("sweep inputs must be contiguous")
+    if skipped is not None and (skipped.dtype != torch.int32
+                                or skipped.shape != (nt,)
+                                or skipped.device != xt.device):
+        raise ValueError(f"skipped must be i32[{nt}] on {xt.device}")
     if cols.data_ptr() % 16:
         raise ValueError("cols must be 16-byte aligned (float4 loads)")
     lib = _build.load()
@@ -168,12 +193,10 @@ def sweep_blocks(xt, cols, gidx, tile_of, tminb, tile):
         ptr(xt.data_ptr()), xt.shape[1], ptr(cols.data_ptr()),
         ptr(gidx.data_ptr()), ptr(bstart.data_ptr()), ptr(bend.data_ptr()),
         ptr(tminb.data_ptr()), *(ptr(o.data_ptr()) for o in out), nt, tile,
+        int(any_hit), ptr(None if skipped is None else skipped.data_ptr()),
         ptr(torch.cuda.current_stream(xt.device).cuda_stream))
     if err:
         raise RuntimeError(f"sweep kernel launch failed: "
                            f"{lib.hagrid_error_string(err).decode()}")
-    sweep_blocks.launches += 1
+    launches["sweep_blocks_anyhit" if any_hit else "sweep_blocks"] += 1
     return out
-
-
-sweep_blocks.launches = 0

@@ -1,18 +1,25 @@
-"""Planned-sweep packet traversal, coherent closest-hit path (port of
-hagrid_tpu/ops/sweep_trace.py).
+"""Planned-sweep packet traversal (port of hagrid_tpu/ops/sweep_trace.py).
 
-Rays stay in their (block-Morton) camera order and are cut into tiles of
-`tile` rays. Each round:
+Camera-coherent waves (coherent=True) stay in their (block-Morton) order;
+incoherent waves (AO, shadow, path bounces) are first binned by (major
+axis, sign) into tile-aligned groups with a stable counting sort
+(`_bin_rays`) and scattered back at the end (`_unbin`). Rays are cut into
+tiles of `tile` rays. Each round:
 
-1. `_plan` (torch): per tile and slice of the tile's major axis, the
+1. the planner (torch): per tile and slice of the tile's major axis, the
    frustum rect of each ray quarter, trimmed per row, turned into ref
    ranges through the grid's `rs`/`rowinfo` tables, with an early-out
-   threshold per range (the slice's tile-entry t);
-2. `_items` (torch): the ranges' 24-ref gather units packed into a
-   stream of 768-ref blocks (`gidx`), each owned by one tile (`tile_of`,
-   ascending) with a per-block threshold (`tminb`);
+   threshold per range (the slice's tile-entry t; for any hit the largest
+   float below BIG). The dense planner `_plan` + `_items` works in fixed
+   (tile, slice, row slot) form, right for coherent waves; the compact
+   planner `_plan_items2` expands exactly the live rect rows into a row
+   stream, right for incoherent waves with tall rects and small tiles;
+2. both pack the ranges' 24-ref gather units into a stream of 768-ref
+   blocks (`gidx`), each owned by one tile (`tile_of`, ascending) with a
+   per-block threshold (`tminb`) (`_pack_units`);
 3. `sweep_blocks` (hand-written CUDA kernel, ops/sweep_kernel.py): every
    tile's run of blocks against its rays, best (t, id, u, v) per ray;
+   closest hit or any hit;
 4. `_merge` (torch): fold the round's hits into the running best.
 
 The whole frame runs with no host read: budgets (`bcaps`) are static per
@@ -27,12 +34,13 @@ from __future__ import annotations
 
 import functools
 
+import numpy as np
 import torch
 
 from ..core.types import Hits, Rays
 from ..grid.packet import BIG as _BIG
 from ..grid.packet import PacketGrid, rays_to_x
-from .segment import add_at_drop, cumsum_i32, trunc_i32
+from .segment import add_at_drop, cumsum_i32, expand_by_counts, trunc_i32
 from .sweep_kernel import UNIT_ROWS, UNITS_PER_BLOCK, sweep_blocks
 
 _SUB = 4        # ray quarters per tile (tighter union rects)
@@ -41,6 +49,8 @@ _G = 6          # refs per group row of `cols`
 _U = UNIT_ROWS  # group rows per gather unit
 _UPB = UNITS_PER_BLOCK  # gather units per 768-ref block
 _IBIG = 1 << 20
+_BIG_BITS = int(np.float32(_BIG).view(np.int32))  # bit pattern of BIG
+_NGROUPS = 7    # (axis, sign) ray groups + 1 dead group
 
 
 def _i32(x, device):
@@ -80,11 +90,71 @@ def _pad_coherent(org, dir, tmin, tmax, n_pad, tile):
     """Keep ray order, pad with dead rays, append the all-dead dummy
     tile. Returns (xp_ext f32[n_pad + tile, 16], xt_ext = its transpose)."""
     x = rays_to_x(org, dir, tmin, tmax)
-    dead = torch.zeros((16,), dtype=torch.float32, device=x.device)
-    dead[0], dead[1], dead[4] = 1.0, -1e30, 1.0
-    pad = dead.expand(n_pad + tile - x.shape[0], 16)
+    pad = _dead_row(x.device).expand(n_pad + tile - x.shape[0], 16)
     xp_ext = torch.cat([x, pad], dim=0)
     return xp_ext, xp_ext.t().contiguous()
+
+
+def _dead_row(device):
+    """X row of a dead ray (tmax = 0: never traced, never hits)."""
+    dead = torch.zeros((16,), dtype=torch.float32, device=device)
+    dead[0], dead[1], dead[4] = 1.0, -1e30, 1.0
+    return dead
+
+
+def _bin_rays(org, dir, tmin, tmax, n_pad, tile):
+    """Group rays by (major axis, sign) into tile-aligned segments with a
+    stable counting sort (masked cumsums, no device-wide sort); rays with
+    tmax <= 0 go to a last, dead group so live tiles stay dense. Within a
+    group the caller's order is kept (the origin-sorted order of a
+    secondary wave). Returns (xp_ext f32[n_pad + tile, 16], xt_ext = its
+    transpose, inv i32[n_pad]: original ray of each row, -1 for padding);
+    n_pad must leave room for every group's padding, (ceil(n/tile) + 7) *
+    tile."""
+    x = rays_to_x(org, dir, tmin, tmax)
+    n = x.shape[0]
+    dev = x.device
+    d = x[:, 4:7]
+    ad = d.abs()
+    axis = torch.where(ad[:, 0] >= torch.maximum(ad[:, 1], ad[:, 2]), 0,
+                       torch.where(ad[:, 1] >= ad[:, 2], 1, 2))
+    sign = (_along(d, axis[:, None], 1)[:, 0] < 0).to(torch.int32)
+    g = torch.where(x[:, 13] > 0, axis.to(torch.int32) * 2 + sign,
+                    _NGROUPS - 1)
+    ranks = torch.zeros((n,), dtype=torch.int32, device=dev)
+    counts = []
+    for k in range(_NGROUPS):
+        mk = g == k
+        ck = cumsum_i32(mk.to(torch.int32))
+        ranks = torch.where(mk, ck - 1, ranks)
+        counts.append(ck[-1])
+    counts = torch.stack(counts)
+    padded = -torch.div(-counts, tile, rounding_mode="floor") * tile
+    offs = cumsum_i32(padded) - padded
+    pos = offs[g.long()] + ranks
+    # Scatter a 1-int permutation, then gather the 16-float rows.
+    inv = torch.full((n_pad + tile,), -1, dtype=torch.int32, device=dev)
+    inv[pos.long()] = torch.arange(n, dtype=torch.int32, device=dev)
+    xp_ext = torch.where((inv >= 0)[:, None], x[inv.clamp(min=0).long()],
+                         _dead_row(dev))
+    return xp_ext, xp_ext.t().contiguous(), inv[:n_pad]
+
+
+def _unbin(best, inv, n) -> Hits:
+    """Scatter binned per-row results (t, id, u, v) back to ray order;
+    t = inf and id = -1 where no hit."""
+    dev = inv.device
+    safe = torch.where(inv >= 0, inv, n).long()
+
+    def back(x, fill):
+        out = torch.full((n + 1,), fill, dtype=x.dtype, device=dev)
+        out[safe] = x.reshape(-1)
+        return out[:n]
+
+    tri = back(best[1], -1)
+    return Hits(tri_id=tri,
+                t=torch.where(tri >= 0, back(best[0], 0.0), float("inf")),
+                u=back(best[2], 0.0), v=back(best[3], 0.0))
 
 
 def _tile_tabs(bbox_lo, bbox_hi, dims3):
@@ -174,9 +244,10 @@ def _precompute(xp, cs_tab, n_tab, lo_tab, bbox_lo, bbox_hi, tile,
 # ----------------------------------------------------------------------
 
 def _plan_dense(per_ray, per_tile, cs_tab, n_tab, lo_tab, ka, best_t,
-                dims3, slab):
+                dims3, slab, any_hit=False):
     """Per (tile, slice): per-quarter frustum bounds, t windows and row
-    rects. Elementwise math and reductions only."""
+    rects. Elementwise math and reductions only. Shared by the dense slot
+    planner (_plan) and the compact row-stream planner (_plan_items2)."""
     axis = per_tile["axis"]
     step = per_tile["step"]
     ax = axis.long()
@@ -186,13 +257,17 @@ def _plan_dense(per_ray, per_tile, cs_tab, n_tab, lo_tab, ka, best_t,
     lo_b, lo_c = lo_tab[ax, 1], lo_tab[ax, 2]
     n_a, n_b, n_c = n_tab[ax, 0], n_tab[ax, 1], n_tab[ax, 2]
 
-    # Ray liveness: best hit precedes the slab's entry plane -> done.
+    # Ray liveness: closest hit is done once its best hit precedes the
+    # slab's entry plane, any hit once it has a hit.
     p_tile = per_tile["p_tile"]
     plane0 = _along(p_tile, _clip(ka + (step < 0).to(torch.int32), 0,
                                   n_a)[:, None], 1)[:, 0]
     t_entry = (plane0[:, None] - per_ray["o_a"]) * per_ray["inv_a"]
     lim = torch.minimum(per_ray["tmax"], per_ray["leave"])
-    done = best_t <= t_entry
+    if any_hit:
+        done = best_t < per_ray["tmax"].clamp(max=_BIG)
+    else:
+        done = best_t <= t_entry
     live = per_ray["alive"] & ~done & (t_entry < lim) \
         & (ka[:, None] >= 0) & (ka[:, None] < n_a[:, None])
 
@@ -277,14 +352,15 @@ def _plan_dense(per_ray, per_tile, cs_tab, n_tab, lo_tab, ka, best_t,
 
 
 def _plan(per_ray, per_tile, cs_tab, n_tab, lo_tab, rs, rowinfo, ka,
-          best_t, dims3, slab, rmax=_RMAX):
+          best_t, dims3, slab, any_hit=False, rmax=_RMAX):
     """One slab's plan in dense slot form: per (tile, slice) `rmax`
     column-trimmed row ranges plus one untrimmed tail range, as gather
     units. Returns (unit_start, unit_count, thr_bits) flattened over
     (tile, slice, rmax + 1); thr_bits is the i32 bit pattern of the
-    slot's early-out threshold (no ref of the slot can hit earlier)."""
+    slot's early-out threshold (no ref of the slot can hit earlier; for
+    any hit, the largest float below BIG: done once a hit exists)."""
     D = _plan_dense(per_ray, per_tile, cs_tab, n_tab, lo_tab, ka, best_t,
-                    dims3, slab)
+                    dims3, slab, any_hit)
     dev = best_t.device
     cs_b, cs_c = D["cs_b"], D["cs_c"]
     lo_b, lo_c = D["lo_b"], D["lo_c"]
@@ -393,6 +469,9 @@ def _plan(per_ray, per_tile, cs_tab, n_tab, lo_tab, rs, rowinfo, ka,
         run = torch.maximum(run, hi_m[:, :, r])
     lo_g = torch.stack(lo_cl, dim=2)
     cnt_g = torch.where(valid, (hi_g - lo_g).clamp(min=0), 0)
+    if any_hit:
+        thr = torch.full_like(cnt_g, _BIG_BITS - 1)
+        return lo_g.reshape(-1), cnt_g.reshape(-1), thr.reshape(-1)
 
     # Early-out thresholds (t >= 0, so int bit order == float order):
     # row slots use the row-restricted entry time, the tail the slice
@@ -406,35 +485,28 @@ def _plan(per_ray, per_tile, cs_tab, n_tab, lo_tab, rs, rowinfo, ka,
     return lo_g.reshape(-1), cnt_g.reshape(-1), _bits(t_all).reshape(-1)
 
 
-def _items(starts, counts, thr, nt, slab, bcap, dead_idx, rmax=_RMAX):
-    """Pack the ranges' gather units into a per-round block stream:
-    gidx i32[bcap*_UPB] (dead_idx for padding), tile_of i32[bcap]
-    (owning tile, ascending; nt for unused blocks), tminb i32[bcap]
-    (per-block early-out threshold, f32 bits), n_blocks, and the
-    unclamped unit demand (overflow detection). Each tile's segment is
-    padded to whole blocks so blocks never straddle tiles."""
-    dev = counts.device
-    nr = slab * (rmax + 1)
+def _pack_units(starts, thr, roff, tile_base, tile_units, demand, nt, bcap,
+                dead_idx):
+    """Pack ranges of gather units into a per-round block stream. Range i
+    starts at unit `starts[i]` and lands at stream slot `roff[i]`
+    (non-decreasing; each tile's segment [tile_base, tile_base +
+    tile_units) is padded to whole blocks, so blocks never straddle
+    tiles). Returns gidx i32[bcap*_UPB] (dead_idx for padding), tile_of
+    i32[bcap] (owning tile, ascending; nt for unused blocks), tminb
+    i32[bcap] (per-block early-out threshold, f32 bits: the min over its
+    units) and n_blocks."""
+    dev = starts.device
     ucap = bcap * _UPB
-    cnt2 = counts.reshape(nt, nr)
-    tile_tot = cnt2.sum(1, dtype=torch.int32)
-    tile_pad = -torch.div(-tile_tot, _UPB, rounding_mode="floor") * _UPB
-    tile_base = cumsum_i32(tile_pad) - tile_pad
-    within = cumsum_i32(cnt2, dim=1) - cnt2
-    roff = (tile_base[:, None] + within).reshape(-1)
-    demand = tile_base[-1] + tile_pad[-1]
-
     # Per-slot (start - roff) and threshold by delta scatter + prefix sum
     # (piecewise constant per range; stacked deltas of empty ranges
     # telescope). Threshold deltas span the whole i32 range, so they
     # accumulate in i64.
-    zero = torch.zeros((1,), dtype=torch.int32, device=dev)
-    sr = starts - roff
-    sr_ff = cumsum_i32(add_at_drop(ucap, roff, torch.diff(sr, prepend=zero)))
-    thr64 = thr.to(torch.int64)
-    d_thr = torch.diff(thr64, prepend=zero.to(torch.int64))
+    zero = torch.zeros((1,), dtype=torch.int64, device=dev)
+    sr = (starts - roff).to(torch.int32)
+    sr_ff = cumsum_i32(add_at_drop(
+        ucap, roff, torch.diff(sr, prepend=zero.to(torch.int32))))
+    d_thr = torch.diff(thr.to(torch.int64), prepend=zero)
     thr_ff = torch.cumsum(add_at_drop(ucap, roff, d_thr), 0).to(torch.int32)
-    # Conservative per-block threshold: min over the block's units.
     tminb = thr_ff.reshape(bcap, _UPB).min(1).values
 
     n_blocks = torch.clamp(torch.div(demand, _UPB, rounding_mode="floor"),
@@ -446,12 +518,197 @@ def _items(starts, counts, thr, nt, slab, bcap, dead_idx, rmax=_RMAX):
     tile_of = torch.where(blk < n_blocks, btile, nt).to(torch.int32)
     # Unit validity from the owner tile's segment end: pad units and
     # blocks past the demand both fall beyond it.
-    own_end = _take(tile_base + tile_tot, btile)
+    own_end = _take(tile_base + tile_units, btile)
     slot = blk[:, None] * _UPB + torch.arange(_UPB, dtype=torch.int32,
                                               device=dev)[None, :]
     valid = slot < own_end[:, None]
     gidx = torch.where(valid, slot + sr_ff.reshape(bcap, _UPB), dead_idx)
-    return gidx.reshape(-1).to(torch.int32), tile_of, tminb, n_blocks, demand
+    return gidx.reshape(-1).to(torch.int32), tile_of, tminb, n_blocks
+
+
+def _block_pad(units):
+    """Units rounded up to whole blocks, and their exclusive prefix sum."""
+    pad = -torch.div(-units, _UPB, rounding_mode="floor") * _UPB
+    return pad, cumsum_i32(pad) - pad
+
+
+def _items(starts, counts, thr, nt, slab, bcap, dead_idx, rmax=_RMAX):
+    """Pack the dense planner's slots into a per-round block stream:
+    (gidx, tile_of, tminb, n_blocks, demand), demand being the unclamped
+    unit demand (overflow detection); see _pack_units."""
+    cnt2 = counts.reshape(nt, slab * (rmax + 1))
+    tile_tot = cnt2.sum(1, dtype=torch.int32)
+    tile_pad, tile_base = _block_pad(tile_tot)
+    within = cumsum_i32(cnt2, dim=1) - cnt2
+    roff = (tile_base[:, None] + within).reshape(-1)
+    demand = tile_base[-1] + tile_pad[-1]
+    return _pack_units(starts, thr, roff, tile_base, tile_tot, demand, nt,
+                       bcap, dead_idx) + (demand,)
+
+
+def _segmented_suffix_min(v, seg_last):
+    """Per segment (a run of rows ending where seg_last is set), the min
+    of v over each row and the rows after it in its segment. In reversed
+    order, segment k's i32 values are shifted down by k * 2^32 in i64:
+    every later segment then lies wholly below every earlier one, so one
+    running min restarts at each segment."""
+    flag = seg_last.flip(0)
+    shift = torch.cumsum(flag.to(torch.int64), 0) << 32
+    run = torch.cummin(v.flip(0).to(torch.int64) - shift, 0).values
+    return (run + shift).to(torch.int32).flip(0)
+
+
+def _plan_items2(per_ray, per_tile, cs_tab, n_tab, lo_tab, rs, rowinfo, ka,
+                 best_t, dims3, slab, any_hit, rowcap, bcap, dead_idx):
+    """Compact row-stream planner and unit packer, for incoherent waves.
+
+    The dense planner's cost scales with nt * slab * (rmax + 1) slots,
+    live or not; incoherent waves need small tiles and many trimmed rows
+    (tall rects), which inflate that slot space. This planner:
+    1. runs the dense phase (_plan_dense): per-(tile, slice) rects;
+    2. expands exactly the live rect rows into a stream of `rowcap` rows
+       (overflow-flagged) by scatter + cumsum (expand_by_counts);
+    3. gathers each row's per-tile and per-slice features once and trims
+       every row's columns per quarter (no untrimmed tail);
+    4. packs the rows' gather units into blocks (_pack_units).
+    Row order is (tile, slice march, row ascending), so consecutive rows
+    of one slice have ascending, disjoint ref spans, whose shared boundary
+    units are clamped away pairwise.
+
+    Returns (gidx, tile_of, tminb, n_blocks, demand_units, row_ovf,
+    total_rows)."""
+    D = _plan_dense(per_ray, per_tile, cs_tab, n_tab, lo_tab, ka, best_t,
+                    dims3, slab, any_hit)
+    nt, S = D["nt"], slab
+    dev = best_t.device
+
+    nrows_d = torch.where(D["rect_ok"], D["b1"] - D["b0"] + 1, 0)  # (nt,S)
+    src, rank, valid_row, total_rows = expand_by_counts(
+        nrows_d.reshape(-1), rowcap)
+    tile_i = torch.div(src, S, rounding_mode="floor")
+
+    # Row features: float and int tables kept apart (the reference packs
+    # i32 bit patterns into one f32 table), gathered once per row.
+    def t2s(v):  # (nt, SUB, S) -> (nt * S, SUB)
+        return v.transpose(1, 2).reshape(nt * S, _SUB)
+
+    per_slice_f = torch.cat([t2s(D["tl"]), t2s(D["th"])], dim=1)
+    rbase = D["qbase"][:, None] + D["k_cl"] * D["n_b"][:, None]
+    per_slice_i = torch.cat([t2s(D["b0q"]), t2s(D["b1q"]),
+                             D["b0"].reshape(-1, 1), rbase.reshape(-1, 1)],
+                            dim=1).to(torch.int32)
+    per_tile_f = torch.cat([
+        torch.stack([D["cs_b"], D["lo_b"], 1.0 / D["cs_c"], D["lo_c"]], 1),
+        D["ob_lo"], D["ob_hi"], D["db_lo"], D["db_hi"],
+        D["oc_lo"], D["oc_hi"], D["dc_lo"], D["dc_hi"]], dim=1)
+    Fs, Is = per_slice_f[src.long()], per_slice_i[src.long()]
+    Ft = per_tile_f[tile_i.long()]
+    ncm1 = (D["n_c"] - 1)[tile_i.long()]
+    cs_b, lo_b, icc0, lo_c_r = Ft[:, 0], Ft[:, 1], Ft[:, 2], Ft[:, 3]
+
+    def quarter(k, q):  # per-tile quarter bound k (0: ob_lo .. 7: dc_hi)
+        return Ft[:, 4 + 4 * k + q]
+
+    j = Is[:, 8] + rank                                   # row index
+    wb0 = lo_b + j.to(torch.float32) * cs_b
+    wb1 = wb0 + cs_b
+    # Per-row rowinfo: ragged rs offset and column multiplier.
+    ri = _take(rowinfo, torch.where(valid_row, Is[:, 9] + j, 0))
+    roff = ri & 0x0FFFFFFF
+    lgm = ri >> 28
+    icc = icc0 * torch.exp2(lgm.to(torch.float32))
+    ncl = ((ncm1 + 1) << lgm) - 1
+
+    c0 = torch.full((rowcap,), _IBIG, dtype=torch.int32, device=dev)
+    c1 = torch.full((rowcap,), -1, dtype=torch.int32, device=dev)
+    row_any = torch.zeros((rowcap,), dtype=torch.bool, device=dev)
+    thr_t = torch.full((rowcap,), _BIG, dtype=torch.float32, device=dev)
+    for q in range(_SUB):
+        tlq, thq = Fs[:, q], Fs[:, 4 + q]
+        b0qv, b1qv = Is[:, q], Is[:, 4 + q]
+        oblo, obhi, dblo, dbhi = (quarter(k, q) for k in range(4))
+        oclo, ochi, dclo, dchi = (quarter(k, q) for k in range(4, 8))
+        db_ok = (dblo > 1e-30) | (dbhi < -1e-30)
+        ia = 1.0 / torch.where(db_ok, dblo, 1.0)
+        ib = 1.0 / torch.where(db_ok, dbhi, 1.0)
+
+        def hull4(na, nb, ia=ia, ib=ib):
+            p0, p1 = na * ia, na * ib
+            p2, p3 = nb * ia, nb * ib
+            return (torch.minimum(torch.minimum(p0, p1),
+                                  torch.minimum(p2, p3)),
+                    torch.maximum(torch.maximum(p0, p1),
+                                  torch.maximum(p2, p3)))
+
+        e0_lo, e0_hi = hull4(wb0 - obhi, wb0 - oblo)
+        e1_lo, e1_hi = hull4(wb1 - obhi, wb1 - oblo)
+        tj_lo = torch.where(db_ok, torch.maximum(
+            tlq, torch.minimum(e0_lo, e1_lo)), tlq)
+        tj_hi = torch.where(db_ok, torch.minimum(
+            thq, torch.maximum(e0_hi, e1_hi)), thq)
+        okq = (tlq <= thq) & (tj_lo <= tj_hi) & (j >= b0qv) & (j <= b1qv)
+        x00, x01 = tj_lo * dclo, tj_lo * dchi
+        x10, x11 = tj_hi * dclo, tj_hi * dchi
+        vlo = oclo + torch.minimum(torch.minimum(x00, x01),
+                                   torch.minimum(x10, x11))
+        vhi = ochi + torch.maximum(torch.maximum(x00, x01),
+                                   torch.maximum(x10, x11))
+        c0q = _clip(trunc_i32((vlo - lo_c_r) * icc), 0, ncl)
+        c1q = _clip(trunc_i32((vhi - lo_c_r) * icc), 0, ncl)
+        c0 = torch.minimum(c0, torch.where(okq, c0q, _IBIG))
+        c1 = torch.maximum(c1, torch.where(okq, c1q, -1))
+        row_any = row_any | okq
+        thr_t = torch.minimum(thr_t, torch.where(okq, tj_lo, _BIG))
+
+    # rs span of the trimmed row. Rows past the total (valid_row False)
+    # read entry 0: their spans are garbage in the reference too, and
+    # only ever land in masked units.
+    live = valid_row & row_any
+    g1 = _take(rs, torch.where(live, roff + torch.minimum(c0, ncl), 0))
+    g2 = _take(rs, torch.where(live, roff + c1.clamp(min=0) + 1, 0))
+    refs_u = _G * _U
+    lo_g = torch.div(g1, refs_u, rounding_mode="floor")
+    hi_g = -torch.div(-g2, refs_u, rounding_mode="floor")
+    valid = live & (g2 > g1)
+    # Adjacent rows of one slice share at most one boundary unit; clamp
+    # it away pairwise (rows r and r+2 cannot touch after rounding out by
+    # less than one unit).
+    hi_m = torch.where(valid, hi_g, 0)
+    same_slot = torch.cat([torch.zeros((1,), dtype=torch.bool, device=dev),
+                           src[1:] == src[:-1]])
+    prev_hi = torch.cat([hi_m.new_zeros(1), hi_m[:-1]])
+    lo_g = torch.where(same_slot, torch.maximum(lo_g, prev_hi), lo_g)
+    cnt = torch.where(valid, (hi_g - lo_g).clamp(min=0), 0)
+    if any_hit:
+        thr_row = torch.full((rowcap,), _BIG_BITS - 1, dtype=torch.int32,
+                             device=dev)
+    else:
+        # Threshold safety as in _plan: a clamped row's boundary unit
+        # rides under an earlier row's emission, so thresholds must not
+        # increase toward earlier rows of a slot: a suffix min per slot.
+        v = torch.where(valid, _bits(thr_t), _BIG_BITS)
+        seg_last = torch.cat([src[:-1] != src[1:],
+                              torch.ones((1,), dtype=torch.bool, device=dev)])
+        thr_row = _segmented_suffix_min(v, seg_last)
+
+    # Block packing from the compact stream.
+    ex = cumsum_i32(cnt) - cnt
+    rows_t = nrows_d.sum(1, dtype=torch.int32)
+    roff_t = cumsum_i32(rows_t) - rows_t
+    last_i = (roff_t + rows_t - 1).clamp(0, rowcap - 1).long()
+    first_i = roff_t.clamp(0, rowcap - 1).long()
+    tile_units = torch.where(rows_t > 0, (ex + cnt)[last_i] - ex[first_i], 0)
+    tile_pad, tile_base = _block_pad(tile_units)
+    demand = tile_base[-1] + tile_pad[-1]
+    # ex never decreases, so the running max of the tile-boundary ex values
+    # is the current tile's first ex.
+    isb = torch.ones((rowcap,), dtype=torch.bool, device=dev)
+    isb[1:] = tile_i[1:] != tile_i[:-1]
+    first_ex = torch.cummax(torch.where(isb, ex, 0), 0).values
+    rows_off = _take(tile_base, tile_i) + (ex - first_ex)
+    out = _pack_units(lo_g, thr_row, rows_off, tile_base, tile_units, demand,
+                      nt, bcap, dead_idx)
+    return out + (demand, total_rows > rowcap, total_rows)
 
 
 def _merge(best, out, tile_of):
@@ -478,15 +735,21 @@ def _merge(best, out, tile_of):
 # ----------------------------------------------------------------------
 
 class _Frame:
-    """Per-frame state shared by the rounds: ray layout, tables and
-    per-tile precompute."""
+    """Per-frame state shared by the rounds: ray layout (binned unless
+    coherent), tables and per-tile precompute."""
 
-    def __init__(self, grid: PacketGrid, rays: Rays, tile: int, n_pad: int):
+    def __init__(self, grid: PacketGrid, rays: Rays, tile: int, n_pad: int,
+                 coherent: bool):
         self.tile = tile
         self.dims3 = grid.dims3
         self.rs, self.rowinfo, self.cols = grid.rs, grid.rowinfo, grid.cols
-        self.xp_ext, self.xt_ext = _pad_coherent(
-            rays.org, rays.dir, rays.tmin, rays.tmax, n_pad, tile)
+        if coherent:
+            self.xp_ext, self.xt_ext = _pad_coherent(
+                rays.org, rays.dir, rays.tmin, rays.tmax, n_pad, tile)
+            self.inv = None
+        else:
+            self.xp_ext, self.xt_ext, self.inv = _bin_rays(
+                rays.org, rays.dir, rays.tmin, rays.tmax, n_pad, tile)
         self.nt = n_pad // tile
         self.tabs = _tile_tabs(grid.bbox_lo, grid.bbox_hi, grid.dims3)
         self.per_ray, self.per_tile = _precompute(
@@ -498,8 +761,8 @@ class _Frame:
         self.tmax = self.xp_ext[:n_pad, 13].reshape(self.nt, tile)
 
     def initial_best(self):
-        # Untraceable lanes (padding) get -BIG so the kernel's early-out
-        # still fires for their tiles; they can never produce a hit.
+        # Untraceable lanes (padding, tmax <= 0) get -BIG so the kernel's
+        # early-out still fires for their tiles; they can never hit.
         dev = self.tmax.device
         shape = (self.nt, self.tile)
         return (torch.where(self.tmax > 0, _BIG, -_BIG),
@@ -507,111 +770,147 @@ class _Frame:
                 torch.zeros(shape, dtype=torch.float32, device=dev),
                 torch.zeros(shape, dtype=torch.float32, device=dev))
 
-    def stream(self, best_t, ka, slab, bcap, rmax):
+    def stream(self, best_t, ka, slab, bcap, rmax, any_hit, rowcap=None):
         """One round's block stream: (xt_round, gidx, tile_of, tminb,
-        demand). xt_round row 14 seeds each ray with min(best, tmax)
-        (closest-hit folds tmax into the seed, so the kernel drops its
-        per-pair t < tmax test); the dummy tile keeps -BIG."""
-        starts, counts, thr = _plan(
-            self.per_ray, self.per_tile, *self.tabs, self.rs, self.rowinfo,
-            ka, best_t, self.dims3, slab, rmax=rmax)
-        gidx, tile_of, tminb, _, demand = _items(
-            starts, counts, thr, self.nt, slab, bcap, self.dead_idx,
-            rmax=rmax)
-        seed = torch.minimum(best_t, self.tmax)
+        demand, row_ovf, rows); rowcap set = the compact planner, whose
+        row overflow and live-row count are the last two (False and 0 for
+        the dense planner). xt_round row 14 seeds each ray: closest hit
+        with min(best, tmax), so the kernel drops its per-pair t < tmax
+        test; any hit with the raw best, since its done threshold means
+        "has a hit", which a tmax seed would trip at once. The dummy tile
+        keeps -BIG."""
+        args = (self.per_ray, self.per_tile, *self.tabs, self.rs,
+                self.rowinfo, ka, best_t, self.dims3, slab, any_hit)
+        if rowcap is None:
+            starts, counts, thr = _plan(*args, rmax=rmax)
+            gidx, tile_of, tminb, _, demand = _items(
+                starts, counts, thr, self.nt, slab, bcap, self.dead_idx,
+                rmax=rmax)
+            row_ovf = torch.zeros((), dtype=torch.bool, device=best_t.device)
+            rows = torch.zeros((), dtype=torch.int32, device=best_t.device)
+        else:
+            gidx, tile_of, tminb, _, demand, row_ovf, rows = _plan_items2(
+                *args, rowcap, bcap, self.dead_idx)
+        seed = best_t if any_hit else torch.minimum(best_t, self.tmax)
         xt_round = self.xt_ext.clone()
         xt_round[14, :self.nt * self.tile] = seed.reshape(-1)
         xt_round[14, self.nt * self.tile:] = -_BIG
-        return xt_round, gidx, tile_of, tminb, demand
+        return xt_round, gidx, tile_of, tminb, demand, row_ovf, rows
 
-    def run(self, slab, bcaps, rmax):
+    def run(self, slab, bcaps, rmax, any_hit, rowcaps=None):
+        """All rounds. Returns (best, overflow, demand_max, rows_max):
+        overflow ORs every round's unit and row overflow; demand_max is
+        the peak round's block demand, rows_max its live-row count."""
         best = self.initial_best()
         ka = self.per_tile["k0"]
         step = self.per_tile["step"]
         dev = ka.device
         overflow = torch.zeros((), dtype=torch.bool, device=dev)
         demand_max = torch.zeros((), dtype=torch.int32, device=dev)
-        for bcap in bcaps:
-            xt_round, gidx, tile_of, tminb, demand = self.stream(
-                best[0], ka, slab, bcap, rmax)
-            overflow = overflow | (demand > bcap * _UPB)
+        rows_max = torch.zeros((), dtype=torch.int32, device=dev)
+        for r, bcap in enumerate(bcaps):
+            xt_round, gidx, tile_of, tminb, demand, row_ovf, rows = \
+                self.stream(best[0], ka, slab, bcap, rmax, any_hit,
+                            None if rowcaps is None else rowcaps[r])
+            overflow = overflow | row_ovf | (demand > bcap * _UPB)
             demand_max = torch.maximum(
                 demand_max, torch.div(demand, _UPB, rounding_mode="floor"))
+            rows_max = torch.maximum(rows_max, rows)
             out = sweep_blocks(xt_round, self.cols, gidx, tile_of, tminb,
-                               self.tile)
+                               self.tile, any_hit=any_hit)
             best = _merge(best, out, tile_of)
             ka = ka + step * slab
-        return best, overflow, demand_max
+        return best, overflow, demand_max, rows_max
+
+    def hits(self, best, n) -> Hits:
+        if self.inv is not None:
+            return _unbin(best, self.inv, n)
+        tri = best[1].reshape(-1)[:n]
+        return Hits(tri_id=tri,
+                    t=torch.where(tri >= 0, best[0].reshape(-1)[:n],
+                                  float("inf")),
+                    u=best[2].reshape(-1)[:n], v=best[3].reshape(-1)[:n])
 
 
-def _budgets(grid, n, tile, slab, bmax):
-    """(tile, slab, n_pad, bcaps) with the reference's defaults: one
-    round over the whole grid for coherent closest-hit waves, and a
-    per-round budget ladder (later rounds on a fraction of bmax)."""
+def _budgets(grid, n, any_hit, coherent, tile, slab, bmax, rowmax):
+    """(tile, slab, n_pad, bcaps, rowcaps) with the reference's defaults.
+    Coherent waves: the dense planner, tile 512, one round over the whole
+    grid (the in-kernel early-out stands in for re-planning). Incoherent
+    waves: binned rays, the compact planner, tile 256 and slabs of 8
+    slices, re-planned between slabs with tightened t-caps. Later rounds
+    run on a fraction of the round-0 budget `bmax` (round demands decay as
+    rays terminate); rowcaps (incoherent only) follow the same ladder from
+    `rowmax` live rows (default: a full unit budget's worth)."""
     da_max = max(d[0] for d in grid.dims3)
-    tile = tile or 512
-    slab = slab or da_max
-    n_pad = -(-n // tile) * tile
+    tile = tile or (512 if coherent else 256)
+    slab = slab or (da_max if coherent else 8)
+    n_pad = (-(-n // tile) + (0 if coherent else _NGROUPS)) * tile
     nt = n_pad // tile
     if bmax is None:
-        bmax = min(12288, max(128, 6 * nt))
+        # Any-hit waves have wider frusta per tile; budget slack costs
+        # only skipped work.
+        scale = 12 if any_hit else 6
+        bmax = min(24576 if any_hit else 12288, max(128, scale * nt))
 
     def cap(r):
-        f = 1.0 if r == 0 else 0.625 if r == 1 else 0.375
+        if r == 0:
+            f = 1.0
+        elif any_hit:
+            f = 0.75 if r == 1 else 0.5
+        else:
+            f = 0.625 if r == 1 else 0.375
         return max(128, int(bmax * f) // 128 * 128)
 
     bcaps = tuple(cap(r) for r in range(-(-da_max // slab)))
-    return tile, slab, n_pad, bcaps
+    rowcaps = None
+    if not coherent:
+        rowmax = rowmax or bcaps[0] * _UPB
+        rowcaps = tuple(max(4096, (-(-rowmax * b // bcaps[0]) // 8) * 8 + 8)
+                        for b in bcaps)
+    return tile, slab, n_pad, bcaps, rowcaps
 
 
 def trace_sweep(grid: PacketGrid, rays: Rays, any_hit: bool = False,
                 tile: int | None = None, slab: int | None = None,
                 bmax: int | None = None, return_overflow: bool = False,
                 coherent: bool = False, return_demand: bool = False,
-                rmax: int | None = None, compact: bool | None = None):
-    """Trace camera-coherent rays against a PacketGrid, closest hit.
+                rmax: int | None = None, rowmax: int | None = None):
+    """Trace rays against a PacketGrid: closest hit, or with any_hit=True
+    some hit in (tmin, tmax) (its t and id need not be the closest).
 
-    The frame reads nothing back to the host. If a round demands more
-    than its budget (`bmax` 768-ref blocks in round 0), the surplus is
-    dropped and the device-side overflow flag is set
-    (return_overflow=True). slab=None plans the whole grid in one round;
-    the in-kernel early-out stands in for re-planning.
-    return_demand adds i32[2] = [peak round block demand, 0]."""
-    if not coherent:
-        raise NotImplementedError(
-            "only coherent=True (camera-ordered waves) is ported; the "
-            "binned incoherent path comes with the any-hit kernel")
-    if any_hit:
-        raise NotImplementedError("any-hit tracing is not ported yet")
-    if compact:
-        raise NotImplementedError("the compact row-stream planner is not "
-                                  "ported yet")
+    coherent=True: the rays are camera-ordered (primaries); they keep
+    their order and the dense planner runs. Otherwise they are binned by
+    (axis, sign) and the compact row-stream planner runs. The frame reads
+    nothing back to the host. If a round demands more than its budget
+    (`bmax` 768-ref blocks in round 0, `rowmax` live rows for the compact
+    planner), the surplus is dropped and the device-side overflow flag is
+    set (return_overflow=True). return_demand adds i32[2] = [peak round
+    block demand, peak round live rows (compact planner; 0 otherwise)]."""
     n = rays.count
-    tile, slab, n_pad, bcaps = _budgets(grid, n, tile, slab, bmax)
-    frame = _Frame(grid, rays, tile, n_pad)
-    best, overflow, demand_max = frame.run(slab, bcaps, rmax or _RMAX)
-
-    tri = best[1].reshape(-1)[:n]
-    found = tri >= 0
-    hits = Hits(tri_id=tri,
-                t=torch.where(found, best[0].reshape(-1)[:n], float("inf")),
-                u=best[2].reshape(-1)[:n], v=best[3].reshape(-1)[:n])
+    tile, slab, n_pad, bcaps, rowcaps = _budgets(
+        grid, n, any_hit, coherent, tile, slab, bmax, rowmax)
+    frame = _Frame(grid, rays, tile, n_pad, coherent)
+    best, overflow, demand_max, rows_max = frame.run(
+        slab, bcaps, rmax or _RMAX, any_hit, rowcaps)
+    hits = frame.hits(best, n)
     out = (hits,)
     if return_overflow:
         out = out + (overflow,)
     if return_demand:
-        out = out + (torch.stack([demand_max, torch.zeros_like(demand_max)]),)
+        out = out + (torch.stack([demand_max, rows_max]),)
     return out if len(out) > 1 else hits
 
 
-def first_round_stream(grid: PacketGrid, rays: Rays, tile: int = 512,
-                       bmax: int | None = None):
-    """Round 0's sweep inputs for camera-coherent `rays`:
-    (xt_round, gidx, tile_of, tminb). For holding the kernel against its
+def first_round_stream(grid: PacketGrid, rays: Rays, any_hit: bool = False,
+                       coherent: bool = True, tile: int | None = None,
+                       bmax: int | None = None, rowmax: int | None = None):
+    """Round 0's sweep inputs (xt_round, gidx, tile_of, tminb, tile) for
+    `rays` with trace_sweep's defaults, for holding the kernel against its
     plain version on a real stream."""
-    tile, slab, n_pad, bcaps = _budgets(grid, rays.count, tile, None, bmax)
-    frame = _Frame(grid, rays, tile, n_pad)
-    xt_round, gidx, tile_of, tminb, _ = frame.stream(
+    tile, slab, n_pad, bcaps, rowcaps = _budgets(
+        grid, rays.count, any_hit, coherent, tile, None, bmax, rowmax)
+    frame = _Frame(grid, rays, tile, n_pad, coherent)
+    xt_round, gidx, tile_of, tminb = frame.stream(
         frame.initial_best()[0], frame.per_tile["k0"], slab, bcaps[0],
-        _RMAX)
-    return xt_round, gidx, tile_of, tminb
+        _RMAX, any_hit, rowcaps and rowcaps[0])[:4]
+    return xt_round, gidx, tile_of, tminb, tile

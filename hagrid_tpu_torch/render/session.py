@@ -3,10 +3,11 @@ hagrid_tpu/render/session.py, packet structure).
 
 Owns the current packet grid, rebuilds it per frame at the frame-1
 capacity and dims (no host sync after the first frame), and traces camera
-waves with the planned sweep. The sweep's block budget is calibrated once
-per wave shape off the timed path (one host read per probe); calibrated
-frames read nothing back, and overflow stays a device flag that
-`poll_overflow` reads at frame boundaries.
+waves and incoherent secondary waves with the planned sweep. The sweep's
+budgets (blocks, and live rows for the compact planner) are calibrated
+once per wave shape off the timed path (one host read per probe);
+calibrated frames read nothing back, and overflow stays a device flag
+that `poll_overflow` reads at frame boundaries.
 """
 
 from __future__ import annotations
@@ -47,7 +48,7 @@ class RenderSession:
     bbox: tuple | None = None  # host-side scene bounds (warm rebuilds)
     # Device bool: OR of the sweep's overflow flags since session start.
     trace_overflow: torch.Tensor | None = None
-    # Calibrated block budget per wave key.
+    # Calibrated (block budget, live-row budget or None) per wave key.
     _bmax_cal: dict = dataclasses.field(default_factory=dict)
     # Per-wave-key accumulated overflow flags (device bools).
     _ovf: dict = dataclasses.field(default_factory=dict)
@@ -87,15 +88,17 @@ class RenderSession:
 
     def trace(self, rays: Rays, any_hit: bool = False,
               coherent: bool = False, cal_key=None) -> Hits:
-        """Trace a wave; coherent=True for camera-ordered waves (the only
-        ported kind). cal_key distinguishes wave kinds of one shape that
-        need separate budgets."""
+        """Trace a wave; coherent=True for camera-ordered waves, which
+        skip the binning. cal_key distinguishes wave kinds of one shape
+        that need separate budgets (AO samples share one, path bounces
+        another)."""
         key = (any_hit, coherent, rays.count, cal_key)
-        bmax = self._bmax_cal.get(key)
-        if bmax is None:
-            bmax = self._calibrate(key, rays, any_hit, coherent)
+        cal = self._bmax_cal.get(key)
+        if cal is None:
+            cal = self._calibrate(key, rays, any_hit, coherent)
+        bmax, rowmax = cal
         hits, ovf = trace_sweep(self.grid, rays, any_hit=any_hit,
-                                coherent=coherent, bmax=bmax,
+                                coherent=coherent, bmax=bmax, rowmax=rowmax,
                                 return_overflow=True)
         prev = self._ovf.get(key)
         self._ovf[key] = ovf if prev is None else prev | ovf
@@ -105,39 +108,44 @@ class RenderSession:
 
     def _calibrate(self, key, rays: Rays, any_hit: bool, coherent: bool):
         """Budget calibration, once per wave shape and off any timed
-        frame (one host read per probe): probe with the default budget,
-        set bmax = demand * margin on the rung ladder, and re-probe until
-        the wave completes (its own overflow flag clear)."""
-        margin = 1.3
-        bmax = None                         # first probe: default budget
+        frame (one host read per probe): probe with the default budgets,
+        set bmax = block demand * margin and rowmax = live rows * margin
+        on the rung ladders, and re-probe until the wave completes (its
+        own overflow flag clear). Incoherent and any-hit waves vary more
+        from frame to frame and get the larger margin."""
+        margin = 1.3 if (coherent and not any_hit) else 1.5
+        bmax = rowmax = None                # first probe: default budgets
         for _ in range(_CAL_TRIES):
             _, ovf, demand = trace_sweep(
                 self.grid, rays, any_hit=any_hit, coherent=coherent,
-                bmax=bmax, return_overflow=True, return_demand=True)
-            ovf_h, d = bool(ovf), int(demand[0])
-            want = _rung(int(d * margin), 1024)
+                bmax=bmax, rowmax=rowmax, return_overflow=True,
+                return_demand=True)
+            ovf_h = bool(ovf)
+            d, rows = (int(x) for x in demand.tolist())
+            want_b = _rung(int(d * margin), 1024)
+            want_r = _rung(int(rows * margin), 8192) if rows else None
             if bmax is not None and not ovf_h:
-                # Complete under the current budget: keep it unless it is
-                # more than two growth steps above what demand asks for.
-                if bmax <= max(want * 2, 2048):
+                # Complete under the current budgets: keep them unless they
+                # are more than two growth steps above what demand asks.
+                if bmax <= max(want_b * 2, 2048):
                     break
-                bmax = want
+                bmax, rowmax = want_b, want_r
                 continue
-            grow = max(want, _rung(int((bmax or 0) * 3 // 2), 1024))
+            grow = max(want_b, _rung(int((bmax or 0) * 3 // 2), 1024))
             if grow > _BMAX_CAP:
                 print(f"WARNING: sweep demand ({d} blocks) needs a budget "
                       f"beyond the {_BMAX_CAP}-block cap; the wave will "
                       f"trace incomplete (flagged)", file=sys.stderr)
-                bmax = _BMAX_CAP
+                bmax, rowmax = _BMAX_CAP, want_r
                 break
-            bmax = grow
-        self._bmax_cal[key] = bmax
-        return bmax
+            bmax, rowmax = grow, want_r
+        self._bmax_cal[key] = (bmax, rowmax)
+        return bmax, rowmax
 
     def poll_overflow(self, recalibrate: bool = True) -> bool:
         """Read the accumulated overflow flags (one host sync; call at
         frame boundaries). With recalibrate=True, grow each offending
-        wave's budget one step (x2 on the ladder) and clear its flag.
+        wave's budgets one step (x2 on the ladders) and clear its flag.
         Returns the OR of the flags."""
         if not self._ovf:
             return False
@@ -145,10 +153,12 @@ class RenderSession:
         any_ovf = any(flags.values())
         if any_ovf and recalibrate:
             for key, v in flags.items():
-                bmax = self._bmax_cal.get(key)
+                bmax, rowmax = self._bmax_cal.get(key, (None, None))
                 if not v or bmax is None:
                     continue
-                self._bmax_cal[key] = min(_rung(bmax * 2, 1024), _BMAX_CAP)
+                self._bmax_cal[key] = (
+                    min(_rung(bmax * 2, 1024), _BMAX_CAP),
+                    _rung(rowmax * 2, 8192) if rowmax else rowmax)
                 del self._ovf[key]
             self.trace_overflow = None
         return any_ovf

@@ -66,7 +66,7 @@ def test_camera_presets_equal_reference(preset):
 @pytest.mark.parametrize("name", ["cornell", "soup"])
 def test_triangles_from_mesh_and_bounds(name):
     v, f = MESHES[name](j_scenes)
-    t, jt = Triangles.from_mesh(v, f), JTris.from_mesh(v, f)
+    t, jt = Triangles.from_mesh(v, f, device="cpu"), JTris.from_mesh(v, f)
     for k in ("v0", "e1", "e2", "n"):
         close(getattr(t, k), getattr(jt, k))
     for a, b in zip(t.bounds(), jt.bounds()):
@@ -91,7 +91,7 @@ def test_rays_to_x():
                                        ("block", 48, 40)])
 def test_primary_rays(order, w, h):
     cam = scenes.sponza_camera()
-    r = camera.primary_rays(cam, w, h, order=order)
+    r = camera.primary_rays(cam, w, h, order=order, device="cpu")
     jr = j_camera.primary_rays(j_scenes.sponza_camera(), w, h, order=order)
     for k in ("org", "dir", "tmin", "tmax"):
         close(getattr(r, k), getattr(jr, k))
@@ -100,16 +100,21 @@ def test_primary_rays(order, w, h):
 def test_primary_rays_jitter():
     rng = np.random.default_rng(2)
     jit = rng.random((32 * 32, 2)).astype(np.float32)
-    r = camera.primary_rays(scenes.cornell_camera(), 32, 32, jitter=jit)
+    r = camera.primary_rays(scenes.cornell_camera(), 32, 32, jitter=jit,
+                            device="cpu")
     jr = j_camera.primary_rays(j_scenes.cornell_camera(), 32, 32,
                                jitter=jnp.asarray(jit))
     close(r.dir, jr.dir)
 
 
 def test_block_index():
+    """The host map and the on-device pixel coordinates that primary_rays
+    and the integrators' reassembly use both equal the reference's map."""
     for w, h in ((32, 32), (128, 64)):
-        np.testing.assert_array_equal(camera.block_index(w, h),
-                                      j_camera.block_index(w, h))
+        want = j_camera.block_index(w, h)
+        np.testing.assert_array_equal(camera.block_index(w, h), want)
+        gx, gy = camera.block_pixels(w, h, "cpu")
+        np.testing.assert_array_equal((gy * w + gx).numpy(), want)
 
 
 def test_image_helpers_equal_reference():
@@ -148,8 +153,9 @@ def test_oracle_matches_reference():
     tmax[::7] = 50.0
     ref = j_oracle.closest_hit(JRays.make(org, d, tmax=tmax),
                                JTris.from_mesh(v, f))
-    hits = oracle.closest_hit(Rays.make(org, d, tmax=tmax),
-                              Triangles.from_mesh(v, f), chunk=64)
+    hits = oracle.closest_hit(Rays.make(org, d, tmax=tmax, device="cpu"),
+                              Triangles.from_mesh(v, f, device="cpu"),
+                              chunk=64)
     check_hits(hits, ref)
     np.testing.assert_array_equal(hits.tri_id.numpy(),
                                   np.asarray(ref.tri_id))
@@ -166,7 +172,9 @@ def test_port_imports_no_jax():
         "for m in mods: importlib.import_module(m)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'hagrid_tpu')]\n"
-        "assert len(mods) >= 13, mods\n"
+        "new = {'hagrid_tpu_torch.' + m for m in ('device', 'ops.sortrays',"
+        " 'render.sampling', 'render.integrators')}\n"
+        "assert len(mods) >= 17 and new <= set(mods), mods\n"
         "assert not bad, bad\n"
         "print(len(mods))\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,

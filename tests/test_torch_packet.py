@@ -92,7 +92,8 @@ def test_tri_box_overlap_and_voxel_ranges():
 
     verts = np.concatenate([v0, v1, v2])
     faces = np.arange(3 * n, dtype=np.int32).reshape(3, n).T.copy()
-    t, jt = Triangles.from_mesh(verts, faces), JTris.from_mesh(verts, faces)
+    t = Triangles.from_mesh(verts, faces, device="cpu")
+    jt = JTris.from_mesh(verts, faces)
     blo = np.array([-1.2, -1.1, -1.3], np.float32)
     bhi = np.array([1.1, 1.2, 1.0], np.float32)
     for dims in ((5, 7, 3), (16, 16, 16)):
@@ -131,7 +132,7 @@ BUILDS = {
 def test_build_packet_cold_and_warm(name):
     mesh, kw = BUILDS[name]
     v, f = mesh()
-    t, jt = Triangles.from_mesh(v, f), JTris.from_mesh(v, f)
+    t, jt = Triangles.from_mesh(v, f, device="cpu"), JTris.from_mesh(v, f)
     g, jg = packet.build_packet(t, **kw), j_packet.build_packet(jt, **kw)
     assert_grids_equal(g, jg)
     # Warm rebuild: frame-1 capacity and dims, host bbox, no check.
@@ -165,7 +166,7 @@ def test_build_packet_sponza_pairs_match():
     planes (bit-exact), pair totals, and all but a handful of the
     ~30k (tri, cell) pairs."""
     v, f = j_scenes.sponza_like(4096)
-    g = packet.build_packet(Triangles.from_mesh(v, f))
+    g = packet.build_packet(Triangles.from_mesh(v, f, device="cpu"))
     jg = j_packet.build_packet(JTris.from_mesh(v, f))
     assert g.dims3 == jg.dims3 and g.ref_capacity == jg.ref_capacity
     np.testing.assert_array_equal(_np(g.planes), _np(jg.planes))
@@ -178,7 +179,7 @@ def test_build_packet_sponza_pairs_match():
 
 def test_warm_rebuild_overflow_flag():
     v, f = j_scenes.random_soup(400, seed=1)
-    t, jt = Triangles.from_mesh(v, f), JTris.from_mesh(v, f)
+    t, jt = Triangles.from_mesh(v, f, device="cpu"), JTris.from_mesh(v, f)
     kw = dict(ref_capacity=768, dims=(8, 8, 8), check=False)
     g, jg = packet.build_packet(t, **kw), j_packet.build_packet(jt, **kw)
     assert bool(g.overflowed) and bool(jg.overflowed)
@@ -187,13 +188,13 @@ def test_warm_rebuild_overflow_flag():
 
 def test_build_packet_empty_scene():
     empty = (np.zeros((0, 3), np.float32), np.zeros((0, 3), np.int32))
-    g = packet.build_packet(Triangles.from_mesh(*empty))
+    g = packet.build_packet(Triangles.from_mesh(*empty, device="cpu"))
     jg = j_packet.build_packet(JTris.from_mesh(*empty))
     assert_grids_equal(g, jg)
 
 
 def test_build_packet_unported_options_raise():
-    t = Triangles.from_mesh(*j_scenes.cornell_box())
+    t = Triangles.from_mesh(*j_scenes.cornell_box(), device="cpu")
     for kw in (dict(adaptive=True), dict(refine=True)):
         with pytest.raises(NotImplementedError):
             packet.build_packet(t, **kw)

@@ -28,7 +28,8 @@ from hagrid_tpu_torch.core.camera import primary_rays
 from hagrid_tpu_torch.core.types import Triangles
 from hagrid_tpu_torch.io.image import dhash, hamming, shade_eyelight
 from hagrid_tpu_torch.ops import sweep_trace as st
-from hagrid_tpu_torch.ops.sweep_kernel import sweep_blocks, sweep_blocks_plain
+from hagrid_tpu_torch.ops.sweep_kernel import (launches, sweep_blocks,
+                                               sweep_blocks_plain)
 from hagrid_tpu_torch.render.session import RenderSession
 from hagrid_tpu_torch.scenes import (SPONZA_EYELIGHT_DHASH, cornell_camera,
                                      sponza_camera)
@@ -49,16 +50,19 @@ def cornell():
     jg = j_build_packet(jt, dims=(6, 6, 6))
     g = interop.packet_grid_from_numpy(
         jg.dims3, jg.bbox_lo, jg.bbox_hi, jg.rs, jg.rowinfo, jg.cols,
-        jg.planes, jg.total_refs, jg.total_pairs, jt.v0, jt.e1, jt.e2, jt.n)
+        jg.planes, jg.total_refs, jg.total_pairs, jt.v0, jt.e1, jt.e2, jt.n,
+        device="cpu")
     jr = j_primary_rays(j_scenes.cornell_camera(), 32, 32, order="block")
-    rays = interop.rays_from_numpy(jr.org, jr.dir, jr.tmin, jr.tmax)
+    rays = interop.rays_from_numpy(jr.org, jr.dir, jr.tmin, jr.tmax,
+                                   device="cpu")
     rng = np.random.default_rng(8)
     org = rng.uniform(50, 500, (512, 3)).astype(np.float32)
     d = rng.normal(size=(512, 3)).astype(np.float32)
     d /= np.linalg.norm(d, axis=1, keepdims=True)
     tmax = np.where(rng.random(512) < 0.2, 100.0, np.inf).astype(np.float32)
     jrand = JRays.make(org, d, tmax=tmax)
-    rand = interop.rays_from_numpy(org, d, np.zeros(512, np.float32), tmax)
+    rand = interop.rays_from_numpy(org, d, np.zeros(512, np.float32), tmax,
+                                   device="cpu")
     return dict(v=v, f=f, jt=jt, jg=jg, g=g, jr=jr, rays=rays,
                 jrand=jrand, rand=rand)
 
@@ -225,9 +229,9 @@ def test_wrapper_on_cpu_takes_plain_version(cornell):
     xt, g_round, gidx, tile_of, tminb = _random_stream(cornell["g"], seed=11)
     args = [torch.as_tensor(a) for a in (xt, _np(cornell["g"].cols), gidx,
                                          tile_of, tminb)]
-    before = sweep_blocks.launches
+    before = dict(launches)
     got = sweep_blocks(*args, TILE)
-    assert sweep_blocks.launches == before
+    assert launches == before
     for a, b in zip(got, sweep_blocks_plain(*args, TILE)):
         assert torch.equal(a, b)
     # The pre-gathered (K1-style) call gives the same result.
@@ -264,18 +268,21 @@ def test_trace_sweep_budget_overflow_flag(cornell):
         return_overflow=True, return_demand=True)
     d = int(demand[0])
     assert bool(ovf) == (d > 128)
-    with pytest.raises(NotImplementedError):
-        st.trace_sweep(cornell["g"], cornell["rays"])
-    with pytest.raises(NotImplementedError):
-        st.trace_sweep(cornell["g"], cornell["rays"], coherent=True,
-                       any_hit=True)
+    # The binned compact path: same flag, and the live-row peak reported.
+    for any_hit in (False, True):
+        _, ovf, demand = st.trace_sweep(
+            cornell["g"], cornell["rays"], any_hit=any_hit, tile=TILE,
+            bmax=1, return_overflow=True, return_demand=True)
+        d, rows = (int(x) for x in demand)
+        assert bool(ovf) == (d > 128) and rows > 0
 
 
 def test_render_session_cornell(cornell):
     c = cornell
-    tris = Triangles.from_mesh(c["v"], c["f"])
+    tris = Triangles.from_mesh(c["v"], c["f"], device="cpu")
     s = RenderSession.create(tris, structure="packet", verts=c["v"])
-    rays = primary_rays(cornell_camera(), 32, 32, order="block")
+    rays = primary_rays(cornell_camera(), 32, 32, order="block",
+                        device="cpu")
     ref = j_oracle.closest_hit(c["jr"], c["jt"])
     check_hits(s.trace(rays, coherent=True), ref)
     assert len(s._bmax_cal) == 1
@@ -315,9 +322,9 @@ def test_sponza_eyelight_reference_dhash():
                              jr.dir, pix, size)
     o_hash = _eyelight_dhash(j_oracle.closest_hit(jr, jt, chunk=128).tri_id,
                              jt.n, jr.dir, pix, size)
-    tris = Triangles.from_mesh(v, f)
+    tris = Triangles.from_mesh(v, f, device="cpu")
     s = RenderSession.create(tris, structure="packet", verts=v)
-    rays = primary_rays(cam, size, size, order="block")
+    rays = primary_rays(cam, size, size, order="block", device="cpu")
     hits = s.trace(rays, coherent=True)
     assert not s.poll_overflow(recalibrate=False)
     p_hash = _eyelight_dhash(hits.tri_id, tris.n, rays.dir, pix, size)
