@@ -28,7 +28,22 @@ Phases, one line each (any failure exits non-zero before the result):
    x 1 spp x 4 bounces (times on the card, calibrated budgets, overflow,
    kernel launches);
 9. correctness on the card: 4096 sampled AO, shadow and path-bounce-1
-   rays against the brute-force oracle, and the AO image's mean.
+   rays against the brute-force oracle, and the AO image's mean;
+10. dynamic frames at full width: AnimatedScene on the Sponza-scale scene,
+   a fresh session with a motion margin, one untimed frame (calibration),
+   then 5 frames of rebuild + 1024x1024 coherent trace (frames per second
+   by the host clock, ms per frame between CUDA events), overflow polled
+   and the frames re-timed if one clipped, and 4096 sampled rays of the
+   last deformed frame against the oracle on that frame's triangles;
+11. the sweep-cost micro-kernels K4-K7 (det-only sweep, FP32 dots, bf16
+   and bf16x3 tensor-core dots) against their plain versions at the
+   reference scripts' full shapes, with their bounds; K5-K7, of which
+   only the last block's sums come back, also have every block's column
+   sums compared and are timed at B and B/2 blocks (the ratio shows the
+   time covers every block); then the
+   two records through the entry points a user calls
+   (hagrid_tpu_torch.exp.kernel_mt20.run and .mxu_micro.run) with the
+   launch counts from zero.
 The last two lines are the kernels' JSON record and
 {"ok": true, "device": {...}}. Needs a CUDA device; imports no JAX.
 """
@@ -47,16 +62,20 @@ import torch
 from hagrid_tpu_torch import oracle, scenes
 from hagrid_tpu_torch.core.camera import block_index, primary_rays
 from hagrid_tpu_torch.core.types import Triangles
+from hagrid_tpu_torch.exp import kernel_mt20, mxu_micro
 from hagrid_tpu_torch.grid.packet import build_packet, rays_to_x
 from hagrid_tpu_torch.io.image import dhash, hamming, shade_eyelight
 from hagrid_tpu_torch.ops import _build, sortrays
+from hagrid_tpu_torch.ops import micro_kernels as mk
 from hagrid_tpu_torch.ops import sweep_kernel as sk
 from hagrid_tpu_torch.ops.sweep_kernel import sweep_blocks, sweep_blocks_plain
 from hagrid_tpu_torch.ops.sweep_trace import _BIG_BITS, first_round_stream
 from hagrid_tpu_torch.render import integrators
+from hagrid_tpu_torch.render.dynamic import AnimatedScene
 from hagrid_tpu_torch.render.sampling import (cosine_hemisphere,
                                               hit_points_normals)
 from hagrid_tpu_torch.render.session import RenderSession
+from hagrid_tpu_torch.utils.config import BuildParams
 
 # tests/test_golden.py pins this dhash for the 128x128 Sponza eye-light
 # render, but the JAX package's session and oracle both render
@@ -67,6 +86,7 @@ PINNED_GOLDEN = "2d2d6b4ae9c9eff3"
 HAM_TOL = 6
 TILE = 512
 KERNEL_SOURCE = "hagrid_tpu_torch/csrc/sweep.cu"
+MICRO_SOURCE = "hagrid_tpu_torch/csrc/micro.cu"
 # One __global__ stands for both TPU schedules of the sweep: the gather
 # call replaces _make_kernel_dma (K2), the pre-gathered call _make_kernel
 # (K1).
@@ -86,7 +106,21 @@ REFS_PER_BLOCK = 768
 # issued at half that rate (the second bound printed).
 FP32_PEAK = 67e12
 FP32_ISSUE = FP32_PEAK / 2
+BF16_PEAK = 989e12             # dense bf16 on the tensor cores
 HBM_RATE = 3.35e12
+# FP32 operations per ray-ref pair of the micro-kernels (csrc/micro.cu):
+# K4 3 multiplies + 2 adds + 1 min; K5 the four linear forms (5 + 6 + 11
+# + 11) and the 4 adds into the row's accumulator.
+DET_OPS_PER_PAIR = 6
+DOTS_OPS_PER_PAIR = 37
+DYN_FRAMES = 5
+# K6/K7 against their plain versions: the tensor cores accumulate the 16
+# products of a step and the 24 (72 for bf16x3) steps in another order
+# than an f32 matmul followed by adds.
+BF16_TOL = 1e-4
+# K5's FMA instance against the plain version, which rounds the multiply
+# and the add of each of its 33 multiply-adds separately.
+FMA_TOL = 1e-5
 AO_SIZE, AO_SAMPLES = 1024, 4
 LIGHT = (15.0, 14.0, 6.0)       # inside the closed 30 x 15 x 12 hall
 PATH_SIZE, PATH_BOUNCES = 512, 4
@@ -312,8 +346,9 @@ def compare_anyhit(name, got, ref, args, rows):
 
 
 def reset_launches():
-    for k in sk.launches:
-        sk.launches[k] = 0
+    for counts in (sk.launches, mk.launches):
+        for k in counts:
+            counts[k] = 0
 
 
 def sample(n, k=4096, seed=0):
@@ -530,6 +565,254 @@ def correctness_phase(session, wave, wave_hits, rays, hits, cam, tris,
           "the correctness waves overflowed")
 
 
+def dynamic_phase(v, f, rays, card):
+    """Phase 10: the dynamic-scene frame loop at full width, as the
+    reference's bench drives it: a fresh session whose bbox has room for
+    the wave's 0.25-unit motion, per frame a deformed mesh, a warm rebuild
+    and a coherent trace, no host read inside the loop."""
+    anim = AnimatedScene(v, f)
+    ext = v.max(0) - v.min(0)
+    margin = float(0.26 / max(float(ext.min()), 1e-6))
+    t0 = time.perf_counter()
+    session = RenderSession.create(anim.frame(0.0), BuildParams.dynamic(),
+                                   "packet", verts=v, bbox_margin=margin)
+
+    def frame(t):
+        session.rebuild(anim.frame(t))
+        return session.trace(rays, coherent=True)
+
+    frame(0.0)                                  # calibrates the budget
+    torch.cuda.synchronize()
+    cal_s = time.perf_counter() - t0
+    times = [0.1 * (i + 1) for i in range(DYN_FRAMES)]
+
+    def run():
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        w0 = time.perf_counter()
+        start.record()
+        hits = [frame(t) for t in times]
+        end.record()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - w0
+        return (DYN_FRAMES / wall, start.elapsed_time(end) / DYN_FRAMES,
+                hits[-1])
+
+    reset_launches()
+    fps, ms, hits = run()
+    launches = sk.launches["sweep_blocks"]
+    retimed = 0
+    while retimed < 2 and session.poll_overflow():   # grows what clipped
+        retimed += 1
+        print(f"[dynamic] a frame overflowed its calibrated budget; grown, "
+              f"re-timing ({retimed})", flush=True)
+        fps, ms, hits = run()
+    ovf = session.poll_overflow(recalibrate=False)
+    grid_ovf = bool(session.grid.overflowed)
+    hit_frac = float((hits.tri_id >= 0).float().mean())
+    print(f"[dynamic] {DYN_FRAMES} frames of deform + rebuild + trace "
+          f"1024x1024 coherent: {fps:.3f} frames/s by the host clock, "
+          f"{ms:.3f} ms/frame between CUDA events ({card}); session + "
+          f"calibration frame {cal_s:.2f} s, bbox margin {margin:.5f}, "
+          f"budget {list(session._bmax_cal.values())}, "
+          f"{session.describe()}; sweep launches in the first timed run "
+          f"{launches}; re-timed {retimed}x; poll_overflow {ovf}; "
+          f"grid.overflowed {grid_ovf}; hit fraction {hit_frac:.4f}",
+          flush=True)
+    check(launches >= DYN_FRAMES, "dynamic frames did not launch the sweep")
+    check(not grid_ovf, "a dynamic rebuild overflowed the ref capacity")
+    check(not ovf, "dynamic frames still overflow after re-calibration")
+    check(0.5 < hit_frac <= 1.0, f"implausible hit fraction {hit_frac}")
+    check_closest_sample(f"dynamic frame t={times[-1]:.1f}", rays, hits,
+                         anim.frame(times[-1]))
+    return dict(fps=fps, ms=ms, launches=launches)
+
+
+def max_diff(got, want):
+    return max(float((a.float() - b.float()).abs().max())
+               for a, b in zip(got, want))
+
+
+def timed_pair(what, fn, fn_half, plain, card):
+    """Kernel ms at the full block count and at half of it, and the plain
+    version's ms (None without `plain`); fails unless full / half lies in
+    1.6-2.4 (a kernel that did only its last block's work would give 1)."""
+    ms = cuda_ms(fn, iters=20, warmup=2)
+    ms_half = cuda_ms(fn_half, iters=20, warmup=2)
+    plain_ms = cuda_ms(plain, iters=1, warmup=0) if plain else None
+    ratio = ms / ms_half
+    print(f"[micro] {what}: kernel {ms:.4f} ms, at half the blocks "
+          f"{ms_half:.4f} ms (ratio {ratio:.3f})"
+          + (f", plain {plain_ms:.3f} ms" if plain else "") + f" ({card})",
+          flush=True)
+    check(1.6 <= ratio <= 2.4, f"{what}: time at B / time at B/2 = "
+          f"{ratio:.3f}, outside 1.6-2.4")
+    return ms, plain_ms
+
+
+def micro_bound(what, ops, rate, nbytes):
+    ops_ms = ops / rate * 1e3
+    bytes_ms = nbytes / HBM_RATE * 1e3
+    by = "operations" if ops_ms >= bytes_ms else "bytes"
+    print(f"[bound] {what}: {ops:.4g} operations = {ops_ms:.4f} ms at "
+          f"{rate / 1e12:.0f} T/s; {nbytes} bytes = {bytes_ms:.4f} ms at "
+          f"{HBM_RATE / 1e12:.2f} TB/s; bound {max(ops_ms, bytes_ms):.4f} "
+          f"ms by {by}", flush=True)
+    return dict(bound_ms=max(ops_ms, bytes_ms), bound_by=by)
+
+
+def nbytes(*tensors):
+    return sum(x.numel() * x.element_size() for x in tensors)
+
+
+def micro_phase(card):
+    """Phase 11: K4-K7 against their plain versions at full shape, their
+    times and bounds, then path A's two records with launch counts from
+    zero. Returns the kernels' entries for the JSON line."""
+    entries = {}
+    # K4 on the decomposition's stream: never done, always done, and a
+    # threshold of +0.0 on every second block (skipped once all mins < 0).
+    xt, cols, gidx, tile_of, live, dead = kernel_mt20.synthetic_stream(
+        device=DEV)
+    nb = tile_of.numel()
+    mixed = torch.where(torch.arange(nb, device=DEV) % 2 == 1,
+                        torch.zeros_like(live), live)
+    err = 0.0
+    for name, thr in (("never done", live), ("always done", dead),
+                      ("every second block at +0.0", mixed)):
+        args = (xt, cols, gidx, tile_of, thr, TILE)
+        got, want = mk.det_sweep(*args), mk.det_sweep_plain(*args)
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, b) for a, b in zip(got, want))
+        err = max(err, max_diff(got, want))
+        print(f"[micro] det_sweep (K4), {nb} blocks x {TILE} rays, "
+              f"thresholds {name}: equal to plain {same}", flush=True)
+        check(same, f"det_sweep differs from its plain version ({name})")
+    # Every tile's output was compared above, so K4 needs no B against
+    # B/2 timing (its fixed part, the `skipped` time, is a fifth of it).
+    ms = cuda_ms(lambda: mk.det_sweep(xt, cols, gidx, tile_of, live, TILE),
+                 iters=20, warmup=2)
+    plain_ms = cuda_ms(lambda: mk.det_sweep_plain(xt, cols, gidx, tile_of,
+                                                  live, TILE),
+                       iters=1, warmup=0)
+    print(f"[micro] det_sweep (K4): kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.3f} ms ({card})", flush=True)
+    b = micro_bound("det_sweep (K4)", nb * REFS_PER_BLOCK * TILE
+                    * DET_OPS_PER_PAIR, FP32_PEAK,
+                    nbytes(xt, cols, gidx, tile_of, tile_of, live)
+                    + 4 * xt.shape[1] * 4)
+    entries["det_sweep"] = dict(
+        name="det_sweep", replaces="exp/r3_kernel_mt20.py:45 (K4, "
+        "make_det_kernel)", max_abs_err=err, ms=ms, plain_ms=plain_ms, **b)
+    del xt, cols, gidx, tile_of, live, dead, mixed, got, want
+
+    xt, g, phi, c = mxu_micro.inputs(device=DEV)
+    n_blocks = g.shape[0] // mk.BLOCK_ROWS
+    hb = n_blocks // 2
+    pairs = n_blocks * REFS_PER_BLOCK * TILE
+    got, want = mk.dots_fp32(xt, g), mk.dots_fp32_plain(xt, g)
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(got, want))
+    print(f"[micro] dots_fp32 (K5), {n_blocks} blocks x {TILE} rays: last "
+          f"block's sums and all {n_blocks} blocks' column sums equal to "
+          f"plain {same}", flush=True)
+    check(same, "dots_fp32 differs from its plain version")
+    ms, plain_ms = timed_pair(
+        "dots_fp32 (K5)", lambda: mk.dots_fp32(xt, g),
+        lambda: mk.dots_fp32(xt, g[:hb * mk.BLOCK_ROWS]),
+        lambda: mk.dots_fp32_plain(xt, g), card)
+    b = micro_bound("dots_fp32 (K5)", pairs * DOTS_OPS_PER_PAIR, FP32_PEAK,
+                    nbytes(xt, g, *got))
+    entries["dots_fp32"] = dict(
+        name="dots_fp32", replaces="exp/r4_mxu_micro.py:68 (K5, vpu_kernel)",
+        max_abs_err=max_diff(got, want), ms=ms, plain_ms=plain_ms, **b)
+    # The same kernel with explicit FMAs: one rounding per multiply-add
+    # where the plain version has two.
+    got_f = mk.dots_fp32(xt, g, fma=True)
+    torch.cuda.synchronize()
+    errs = [float((a - w).abs().max()) for a, w in zip(got_f, want)]
+    tols = [FMA_TOL * float(w.abs().max()) for w in want]
+    print(f"[micro] dots_fp32_fma (K5 with FMAs): last block's sums max "
+          f"|err| {errs[0]:.3e} (tolerance {tols[0]:.3e}), column sums max "
+          f"|err| {errs[1]:.3e} (tolerance {tols[1]:.3e})", flush=True)
+    check(errs[0] <= tols[0] and errs[1] <= tols[1],
+          f"dots_fp32_fma differs from the plain version beyond {FMA_TOL} "
+          f"x max|ref|")
+    ms, _ = timed_pair(
+        "dots_fp32_fma", lambda: mk.dots_fp32(xt, g, fma=True),
+        lambda: mk.dots_fp32(xt, g[:hb * mk.BLOCK_ROWS], fma=True), None,
+        card)
+    entries["dots_fp32_fma"] = dict(
+        name="dots_fp32_fma", replaces="exp/r4_mxu_micro.py:68 (K5, "
+        "vpu_kernel; the instance with explicit FMAs)", max_abs_err=errs[0],
+        ms=ms, plain_ms=plain_ms, **b)
+
+    flops = 2 * n_blocks * mk.BLOCK_C_ROWS * mk.DOT_DEPTH * TILE
+    exact = (c[-mk.BLOCK_C_ROWS:].double().reshape(-1, mk.BLOCK_ROWS,
+                                                   mk.DOT_DEPTH).sum(0)
+             @ phi.double())
+    for split, key, rep in (
+            (False, "dots_bf16", "exp/r4_mxu_micro.py:89 (K6, mxu1_kernel)"),
+            (True, "dots_bf16x3",
+             "exp/r4_mxu_micro.py:101 (K7, mxu3_kernel)")):
+        got = mk.dots_bf16(phi, c, split=split)
+        want = mk.dots_bf16_plain(phi, c, split=split)
+        torch.cuda.synchronize()
+        errs = [float((a - w).abs().max()) for a, w in zip(got, want)]
+        tols = [BF16_TOL * float(w.abs().max()) for w in want]
+        rel64 = float((got[0].double() - exact).abs().max()
+                      / exact.abs().max())
+        print(f"[micro] {key}, {n_blocks} blocks x {TILE} rays: last "
+              f"block's sums max |err| {errs[0]:.3e} (tolerance "
+              f"{tols[0]:.3e}), column sums of all blocks max |err| "
+              f"{errs[1]:.3e} (tolerance {tols[1]:.3e}); the kernel's last "
+              f"block against the f64 product: relative error "
+              f"{rel64:.3e}", flush=True)
+        check(errs[0] <= tols[0] and errs[1] <= tols[1],
+              f"{key} differs from its plain version beyond {BF16_TOL} x "
+              f"max|ref|")
+        check(rel64 < (1e-4 if split else 2e-2),
+              f"{key}: relative error {rel64} against f64")
+        ms, plain_ms = timed_pair(
+            key, lambda: mk.dots_bf16(phi, c, split=split),
+            lambda: mk.dots_bf16(phi, c[:hb * mk.BLOCK_C_ROWS], split=split),
+            lambda: mk.dots_bf16_plain(phi, c, split=split), card)
+        b = micro_bound(key, flops * (3 if split else 1), BF16_PEAK,
+                        nbytes(phi, c, *got))
+        entries[key] = dict(name=key, replaces=rep, max_abs_err=errs[0],
+                            ms=ms, plain_ms=plain_ms, rel_err_f64=rel64, **b)
+    del xt, g, phi, c, got, want
+
+    # Path A through its entry points, every count from zero.
+    reset_launches()
+    rec_a = kernel_mt20.run()
+    rec_b = mxu_micro.run()
+    torch.cuda.synchronize()
+    counts = dict(mk.launches)
+    print(f"[path A] kernel_mt20 ({card}):\n{kernel_mt20.report(rec_a)}",
+          flush=True)
+    print(f"[path A] mxu_micro ({card}):\n{mxu_micro.report(rec_b)}",
+          flush=True)
+    print(f"[path A] records: {json.dumps(rec_a)} {json.dumps(rec_b)}; "
+          f"launches {counts}, production sweep "
+          f"{sk.launches['sweep_blocks']}", flush=True)
+    for key, n in counts.items():
+        check(n > 0, f"path A did not launch {key}")
+    check(sk.launches["sweep_blocks"] > 0,
+          "path A did not launch the production sweep")
+    for rec in (rec_a, rec_b):
+        check(all(np.isfinite(x) and x > 0 for k, x in rec.items()
+                  if isinstance(x, float)), f"non-finite record {rec}")
+    check(rec_a["skipped_ms"] < rec_a["det3_ms"] < rec_a["full_ms"],
+          "the decomposition is not ordered skipped < det3 < full")
+    for key, e in entries.items():
+        # No single PyTorch call computes a kernel's fused row-group sums.
+        e.update(route="cuda", source=MICRO_SOURCE, launches=counts[key],
+                 library_ms=None)
+    return list(entries.values())
+
+
 def main(profile_path=False) -> int:
     if not torch.cuda.is_available():
         print("FAIL: torch.cuda.is_available() is false; this smoke run "
@@ -675,6 +958,12 @@ def main(profile_path=False) -> int:
     correctness_phase(session, ao["wave"], ao["wave_hits"], rays, hits, cam,
                       tris, ao_img)
 
+    # 10. dynamic frames at full width
+    dyn = dynamic_phase(v, f, rays, card)
+
+    # 11. the sweep-cost micro-kernels and path A's records
+    micro_kernels = micro_phase(card)
+
     # 6. optional device-time breakdown, run last
     if profile_path is not False:
         for what, fn in (("frame", lambda: session.trace(rays, coherent=True)),
@@ -690,8 +979,9 @@ def main(profile_path=False) -> int:
     # ms/plain_ms: the gather call (the main path's); *_pregathered: the
     # same kernel called K1's way in phase 3, which the main path never
     # makes. launches: the main path's count (phase 4 for closest hit,
-    # phase 8 for any hit). No single PyTorch call computes the sweep:
-    # library_ms is null.
+    # phase 8 for any hit, phase 11's records for K4-K7); the dynamic
+    # frames' sweep launches ride on the closest-hit entry. No single
+    # PyTorch call computes the sweep: library_ms is null.
     kernels = [
         dict(name="sweep_blocks", route="cuda", source=KERNEL_SOURCE,
              replaces=REPLACES, launches=launches,
@@ -699,7 +989,8 @@ def main(profile_path=False) -> int:
              bound_ms=bound_k12["bound_ms"], bound_by=bound_k12["bound_by"],
              library_ms=None, blocks_skipped=bound_k12["blocks_skipped"],
              bound_ms_no_fma=bound_k12["bound_ms_no_fma"],
-             ms_pregathered=ms1, plain_ms_pregathered=plain_ms1),
+             ms_pregathered=ms1, plain_ms_pregathered=plain_ms1,
+             launches_dynamic=dyn["launches"]),
         dict(name="sweep_blocks_anyhit", route="cuda", source=KERNEL_SOURCE,
              replaces=REPLACES_ANYHIT,
              launches=slice_launches["sweep_blocks_anyhit"],
@@ -707,7 +998,8 @@ def main(profile_path=False) -> int:
              bound_ms=ao["bound"]["bound_ms"],
              bound_by=ao["bound"]["bound_by"], library_ms=None,
              blocks_skipped=ao["bound"]["blocks_skipped"],
-             bound_ms_no_fma=ao["bound"]["bound_ms_no_fma"])]
+             bound_ms_no_fma=ao["bound"]["bound_ms_no_fma"]),
+        *micro_kernels]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

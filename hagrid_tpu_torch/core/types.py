@@ -127,3 +127,34 @@ class Triangles:
         lo = torch.minimum(torch.minimum(self.v0, v1), v2)
         hi = torch.maximum(torch.maximum(self.v0, v1), v2)
         return lo, hi
+
+
+@dataclasses.dataclass
+class AABB:
+    """Axis-aligned bounding box; lo/hi are f32[3] (or batched f32[...,3])."""
+
+    lo: torch.Tensor
+    hi: torch.Tensor
+
+    @staticmethod
+    def of_points(pts, device=None) -> "AABB":
+        pts = _f32(pts, device)
+        return AABB(lo=pts.min(dim=0).values, hi=pts.max(dim=0).values)
+
+    @staticmethod
+    def of_triangles(tris: Triangles) -> "AABB":
+        lo, hi = tris.bounds()
+        return AABB(lo=lo.min(dim=0).values, hi=hi.max(dim=0).values)
+
+    def extents(self) -> torch.Tensor:
+        return self.hi - self.lo
+
+    def half_area(self) -> torch.Tensor:
+        """SAH surface-area metric: the box's half surface area."""
+        e = self.extents()
+        return e[..., 0] * (e[..., 1] + e[..., 2]) + e[..., 1] * e[..., 2]
+
+    def pad(self, eps: float = 1e-4) -> "AABB":
+        """Slightly enlarged box so boundary triangles bin robustly."""
+        d = self.extents() * eps + eps
+        return AABB(lo=self.lo - d, hi=self.hi + d)

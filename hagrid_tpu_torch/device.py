@@ -19,6 +19,13 @@ def default_device() -> torch.device:
     return torch.device("cuda")
 
 
+def device_name(device) -> str:
+    """What a measurement names its device: the card's name, or "cpu"."""
+    device = torch.device(device)
+    return (torch.cuda.get_device_name(device) if device.type == "cuda"
+            else "cpu")
+
+
 def resolve(device=None, like=None) -> torch.device:
     """`device` if given, else the device of the tensor `like`, else the
     card."""

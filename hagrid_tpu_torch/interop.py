@@ -15,6 +15,7 @@ import torch
 from .core.types import Rays, Triangles
 from .device import resolve
 from .grid.packet import PacketGrid
+from .render.dynamic import AnimatedScene
 
 
 def _t(x, dtype, device):
@@ -45,3 +46,20 @@ def packet_grid_from_numpy(dims3, bbox_lo, bbox_hi, rs, rowinfo, cols,
         total_pairs=_t(total_pairs, i, device),
         tris=triangles_from_numpy(v0, e1, e2, n, device),
         rowinfo=_t(rowinfo, i, device), planes=_t(planes, f, device))
+
+
+def animated_scene_from_numpy(vertices, faces, device=None) -> AnimatedScene:
+    """An AnimatedScene (wave deformation) from a mesh's numpy vertices
+    and faces."""
+    return AnimatedScene(np.array(vertices, np.float32),
+                         np.array(faces, np.int64), device=resolve(device))
+
+
+def packet_grid_from_reference(jg, device=None) -> PacketGrid:
+    """The port's PacketGrid from the JAX package's (any object with its
+    fields; each is read through np.asarray)."""
+    t = jg.tris
+    return packet_grid_from_numpy(
+        jg.dims3, jg.bbox_lo, jg.bbox_hi, jg.rs, jg.rowinfo, jg.cols,
+        jg.planes, jg.total_refs, jg.total_pairs, t.v0, t.e1, t.e2, t.n,
+        device=device)

@@ -1,9 +1,11 @@
-"""Build and load the package's CUDA kernels (csrc/*.cu).
+"""Build and load the package's CUDA kernels (csrc/*.cu, csrc/*.cuh).
 
-nvcc compiles every source into one shared library with a plain C
-interface, loaded with ctypes (no PyTorch headers, so a build takes
+nvcc compiles every source to an object, all sources at once (one nvcc
+process each), and links the objects into one shared library with a plain
+C interface, loaded with ctypes (no PyTorch headers, so a build takes
 seconds). The library lands in hagrid_tpu_torch/build/<hash>/, keyed by a
-hash of the sources and flags, at first use; later loads reuse it.
+hash of the sources, the headers and the flags, at first use; later loads
+reuse it.
 """
 
 from __future__ import annotations
@@ -23,8 +25,7 @@ BUILD_DIR = _PKG / "build"
 # -fmad=false: no FMA contraction, so the kernel rounds exactly like its
 # plain torch version (each op rounded on its own).
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v"]
+              "-O3", "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _lib = None
 # What the last build did: {"seconds", "path", "log"} (log = nvcc's
@@ -47,13 +48,20 @@ def _nvcc() -> str:
     return found
 
 
+def _sources() -> list:
+    return sorted(SRC_DIR.glob("*.cu"))
+
+
 def library_path() -> pathlib.Path:
-    sources = sorted(SRC_DIR.glob("*.cu"))
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for s in sources:
+    for s in _sources() + sorted(SRC_DIR.glob("*.cuh")):
         h.update(s.name.encode())
         h.update(s.read_bytes())
     return BUILD_DIR / h.hexdigest()[:16] / "libhagrid_kernels.so"
+
+
+def _fail(cmd, returncode, log):
+    raise RuntimeError(f"nvcc failed ({returncode}):\n{' '.join(cmd)}\n{log}")
 
 
 def build() -> pathlib.Path:
@@ -63,20 +71,33 @@ def build() -> pathlib.Path:
         last_build.update(seconds=0.0, path=str(out), log="(cached)")
         return out
     out.parent.mkdir(parents=True, exist_ok=True)
-    sources = [str(s) for s in sorted(SRC_DIR.glob("*.cu"))]
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *sources]
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    secs = time.perf_counter() - t0
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{log}")
-    os.replace(tmp, out)
-    last_build.update(seconds=secs, path=str(out), log=log)
+    with tempfile.TemporaryDirectory(dir=out.parent) as tmp:
+        jobs = []
+        for src in _sources():
+            obj = os.path.join(tmp, src.stem + ".o")
+            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)]
+            jobs.append((cmd, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                text=True)))
+        logs, failed = [], None
+        for cmd, _, proc in jobs:      # wait for all before raising
+            log = "".join(proc.communicate())
+            logs.append(log)
+            if proc.returncode != 0 and failed is None:
+                failed = (cmd, proc.returncode, log)
+        if failed:
+            _fail(*failed)
+        lib = os.path.join(tmp, "lib.so")
+        cmd = [nvcc, "-shared", "-o", lib, *(obj for _, obj, _ in jobs)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        logs.append(proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            _fail(cmd, proc.returncode, logs[-1])
+        os.replace(lib, out)
+    last_build.update(seconds=time.perf_counter() - t0, path=str(out),
+                      log="".join(logs))
     return out
 
 
@@ -89,6 +110,13 @@ def load():
         lib.hagrid_sweep.argtypes = [p, i, p, p, p, p, p, p, p, p, p, i, i,
                                      i, p, p]
         lib.hagrid_sweep.restype = i
+        lib.hagrid_det_sweep.argtypes = [p, i, p, p, p, p, p, p, p, p, p, i,
+                                         i, p]
+        lib.hagrid_det_sweep.restype = i
+        lib.hagrid_dots_fp32.argtypes = [p, p, p, p, i, i, p]
+        lib.hagrid_dots_fp32.restype = i
+        lib.hagrid_dots_bf16.argtypes = [p, p, p, p, i, i, p]
+        lib.hagrid_dots_bf16.restype = i
         lib.hagrid_error_string.argtypes = [i]
         lib.hagrid_error_string.restype = ctypes.c_char_p
         _lib = lib

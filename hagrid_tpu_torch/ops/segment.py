@@ -88,3 +88,32 @@ def segment_starts(sorted_keys: torch.Tensor,
     counts = add_at_drop(num_segments + 1, k + 1,
                          (sorted_keys < num_segments).to(torch.int32))
     return cumsum_i32(counts)
+
+
+def rows_to_segments(starts: torch.Tensor, num_rows: int) -> torch.Tensor:
+    """Inverse of segment_starts: owner segment id per row j in
+    [0, num_rows). starts i32[S+1]. Rows beyond starts[S] get S-1."""
+    s = starts.shape[0] - 1
+    markers = add_at_drop(num_rows, starts[:s], 1)
+    return (cumsum_i32(markers) - 1).clamp(0, s - 1)
+
+
+def compact_indices(mask: torch.Tensor):
+    """Stable compaction: indices of True entries packed to the front.
+
+    Returns (idx i32[N], count). Rows past count hold the False indices (in
+    order), so gathers with idx are always in-bounds."""
+    idx = torch.arange(mask.shape[0], dtype=torch.int32, device=mask.device)
+    _, packed = sort_pairs((~mask).to(torch.int32), idx)
+    return packed, mask.sum(dtype=torch.int32)
+
+
+def segmented_unique(sorted_seg: torch.Tensor, sorted_val: torch.Tensor,
+                     invalid_val):
+    """Deduplicate (segment, value) pairs that are sorted by (segment,
+    value): a row equal to the previous one in both gets `invalid_val`.
+    Returns (values, keep_mask)."""
+    keep = torch.ones_like(sorted_seg, dtype=torch.bool)
+    keep[1:] = ((sorted_seg[1:] != sorted_seg[:-1])
+                | (sorted_val[1:] != sorted_val[:-1]))
+    return torch.where(keep, sorted_val, invalid_val), keep

@@ -153,6 +153,40 @@ def sweep_blocks_plain(xt, cols, gidx, tile_of, tminb, tile, any_hit=False):
     return out_t, out_id, out_u, out_v
 
 
+def cuda_launch_args(xt, cols, gidx, tile_of, tminb, tile):
+    """What a launch of the sweep's shell needs beside its inputs, after
+    checking them for the card: (nt, the four outputs before the sweep,
+    (bstart, bend) i32[nt] each tile's run of blocks); the runs are None
+    when there is nothing to launch."""
+    if xt.device.type != "cuda":
+        raise RuntimeError(f"no sweep kernel for device {xt.device}")
+    nt = _check(xt, cols, gidx, tile_of, tminb, tile)
+    if tile % 64 or not 64 <= tile <= 512:
+        raise ValueError(f"the CUDA sweep takes tiles of 64..512 rays in "
+                         f"steps of 64, got {tile}")
+    tensors = (xt, cols, gidx, tile_of, tminb)
+    if not all(x.is_contiguous() for x in tensors):
+        raise ValueError("sweep inputs must be contiguous")
+    if cols.data_ptr() % 16:
+        raise ValueError("cols must be 16-byte aligned (float4 loads)")
+    out = _empty_out(xt.shape[1], xt.device)
+    if nt == 0 or tile_of.numel() == 0:
+        return nt, out, None
+    # tile_of is ascending, so two searches on the device, no host read
+    # of the block count.
+    tiles = torch.arange(nt, dtype=torch.int32, device=xt.device)
+    bstart = torch.searchsorted(tile_of, tiles, out_int32=True)
+    bend = torch.searchsorted(tile_of, tiles, right=True, out_int32=True)
+    return nt, out, (bstart, bend)
+
+
+def raise_on(lib, err: int, what: str):
+    """Raise when a kernel's C entry point returned a CUDA error."""
+    if err:
+        raise RuntimeError(f"{what} kernel launch failed: "
+                           f"{lib.hagrid_error_string(err).decode()}")
+
+
 def sweep_blocks(xt, cols, gidx, tile_of, tminb, tile, any_hit=False,
                  skipped=None):
     """The sweep: the CUDA kernel for CUDA tensors, the plain version for
@@ -164,39 +198,21 @@ def sweep_blocks(xt, cols, gidx, tile_of, tminb, tile, any_hit=False,
             raise ValueError("the plain version skips no blocks")
         return sweep_blocks_plain(xt, cols, gidx, tile_of, tminb, tile,
                                   any_hit)
-    if xt.device.type != "cuda":
-        raise RuntimeError(f"no sweep kernel for device {xt.device}")
-    nt = _check(xt, cols, gidx, tile_of, tminb, tile)
-    if tile % 64 or not 64 <= tile <= 512:
-        raise ValueError(f"the CUDA sweep takes tiles of 64..512 rays in "
-                         f"steps of 64, got {tile}")
-    tensors = (xt, cols, gidx, tile_of, tminb)
-    if not all(x.is_contiguous() for x in tensors):
-        raise ValueError("sweep inputs must be contiguous")
+    nt, out, runs = cuda_launch_args(xt, cols, gidx, tile_of, tminb, tile)
     if skipped is not None and (skipped.dtype != torch.int32
                                 or skipped.shape != (nt,)
                                 or skipped.device != xt.device):
         raise ValueError(f"skipped must be i32[{nt}] on {xt.device}")
-    if cols.data_ptr() % 16:
-        raise ValueError("cols must be 16-byte aligned (float4 loads)")
-    lib = _build.load()
-    out = _empty_out(xt.shape[1], xt.device)
-    if nt == 0 or tile_of.numel() == 0:
+    if runs is None:
         return out
-    # Each tile's run of blocks [bstart, bend): tile_of is ascending,
-    # so two searches on the device, no host read of the block count.
-    tiles = torch.arange(nt, dtype=torch.int32, device=xt.device)
-    bstart = torch.searchsorted(tile_of, tiles, out_int32=True)
-    bend = torch.searchsorted(tile_of, tiles, right=True, out_int32=True)
+    lib = _build.load()
     ptr = ctypes.c_void_p
     err = lib.hagrid_sweep(
         ptr(xt.data_ptr()), xt.shape[1], ptr(cols.data_ptr()),
-        ptr(gidx.data_ptr()), ptr(bstart.data_ptr()), ptr(bend.data_ptr()),
+        ptr(gidx.data_ptr()), *(ptr(r.data_ptr()) for r in runs),
         ptr(tminb.data_ptr()), *(ptr(o.data_ptr()) for o in out), nt, tile,
         int(any_hit), ptr(None if skipped is None else skipped.data_ptr()),
         ptr(torch.cuda.current_stream(xt.device).cuda_stream))
-    if err:
-        raise RuntimeError(f"sweep kernel launch failed: "
-                           f"{lib.hagrid_error_string(err).decode()}")
+    raise_on(lib, err, "sweep")
     launches["sweep_blocks_anyhit" if any_hit else "sweep_blocks"] += 1
     return out

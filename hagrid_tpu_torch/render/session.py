@@ -21,6 +21,7 @@ import torch
 from ..core.types import Hits, Rays, Triangles
 from ..grid import packet
 from ..ops.sweep_trace import trace_sweep
+from ..utils.config import BuildParams
 
 # Ceiling on the calibrated block budget: the frame's transient arrays
 # grow with it (gidx 128 B/block, forward-fill scans, tile_of/tminb).
@@ -43,6 +44,7 @@ def _rung(x: int, base: int) -> int:
 
 @dataclasses.dataclass
 class RenderSession:
+    params: BuildParams
     structure: str
     grid: packet.PacketGrid | None
     bbox: tuple | None = None  # host-side scene bounds (warm rebuilds)
@@ -54,17 +56,21 @@ class RenderSession:
     _ovf: dict = dataclasses.field(default_factory=dict)
 
     @staticmethod
-    def create(tris: Triangles, structure: str = "packet", verts=None,
+    def create(tris: Triangles, params: BuildParams | None = None,
+               structure: str = "packet", verts=None,
                bbox_margin: float = 0.0) -> "RenderSession":
-        """verts: optional host vertex array; gives the build its bounds
-        without a device read. bbox_margin: fraction of the scene extent
+        """The reference's signature. params: kept on the session for
+        callers that read it back (the packet build uses none of its
+        fields). verts: optional host vertex array; gives the build its
+        bounds without a device read. bbox_margin: fraction of the scene extent
         added on every side of the session bbox, which warm rebuilds
         reuse (geometry that moves outside it is clamped into boundary
         cells, and hits can be missed)."""
         if structure != "packet":
             raise ValueError(f"structure {structure!r} is not ported; "
                              f"only 'packet' is")
-        s = RenderSession(structure=structure, grid=None)
+        s = RenderSession(params=params or BuildParams(),
+                          structure=structure, grid=None)
         if verts is not None and len(verts):
             v = np.asarray(verts, np.float32)
             lo, hi = v.min(0), v.max(0)

@@ -1,6 +1,7 @@
 """PyTorch port on the card: the CUDA sweep kernel (closest hit and any
-hit) against its plain version, and traced waves against the oracle, all
-on an NVIDIA GPU.
+hit) and the sweep-cost micro-kernels against their plain versions, and
+traced waves (static and deformed scenes) against the oracle, all on an
+NVIDIA GPU.
 
 These tests skip without a GPU (the CUDA kernel has no CPU mode). The
 module imports no JAX, so it also runs on a machine without it; there,
@@ -16,14 +17,18 @@ import torch
 from hagrid_tpu_torch import oracle, scenes
 from hagrid_tpu_torch.core.camera import primary_rays
 from hagrid_tpu_torch.core.types import Triangles
+from hagrid_tpu_torch.exp import kernel_mt20, mxu_micro
 from hagrid_tpu_torch.grid.packet import build_packet, rays_to_x
+from hagrid_tpu_torch.ops import micro_kernels as mk
 from hagrid_tpu_torch.ops.sweep_kernel import (launches, sweep_blocks,
                                                sweep_blocks_plain)
 from hagrid_tpu_torch.ops.sweep_trace import _BIG_BITS
 from hagrid_tpu_torch.render import integrators
+from hagrid_tpu_torch.render.dynamic import AnimatedScene
 from hagrid_tpu_torch.render.sampling import (cosine_hemisphere,
                                               hit_points_normals)
 from hagrid_tpu_torch.render.session import RenderSession
+from hagrid_tpu_torch.utils import profiling
 
 
 @pytest.fixture
@@ -157,3 +162,104 @@ def test_ao_and_path_on_card(cuda):
                                  max_bounces=3)
     assert img.shape == (32, 32, 3) and 0 < float(img.mean()) <= 1
     assert not s.poll_overflow(recalibrate=False)
+
+
+@pytest.mark.gpu
+def test_det_sweep_matches_plain_on_card(cuda):
+    """K4 equals its plain version bit for bit (no FMA contraction), with
+    every block swept, every block skipped and mixed thresholds."""
+    xt, cols, gidx, tile_of, live, dead = kernel_mt20.synthetic_stream(
+        tile=512, nt=6, blocks_per_tile=3, seed=2, device=cuda)
+    mixed = torch.where(torch.arange(live.numel(), device=cuda) % 3 == 1,
+                        torch.zeros_like(live), live)  # done once min <= +0
+    for thr in (live, dead, mixed):
+        before = mk.launches["det_sweep"]
+        got = mk.det_sweep(xt, cols, gidx, tile_of, thr, 512)
+        torch.cuda.synchronize()
+        assert mk.launches["det_sweep"] == before + 1
+        want = mk.det_sweep_plain(xt, cols, gidx, tile_of, thr, 512)
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+    assert torch.equal(mk.det_sweep(xt, cols, gidx, tile_of, dead, 512)[0]
+                       [:6 * 512], xt[14, :6 * 512])
+
+
+@pytest.mark.gpu
+def test_dots_fp32_matches_plain_on_card(cuda):
+    """K5 equals its plain version bit for bit: the last block's sums and
+    every block's column sums."""
+    xt, g, _, _ = mxu_micro.inputs(blocks=3, seed=3, device=cuda)
+    before = mk.launches["dots_fp32"]
+    out, csum = mk.dots_fp32(xt, g)
+    torch.cuda.synchronize()
+    assert mk.launches["dots_fp32"] == before + 1
+    want, want_cs = mk.dots_fp32_plain(xt, g)
+    assert torch.equal(out, want) and torch.equal(csum, want_cs)
+    # The FMA instance rounds once per multiply-add: close, not equal.
+    before = mk.launches["dots_fp32_fma"]
+    out_f, csum_f = mk.dots_fp32(xt, g, fma=True)
+    assert mk.launches["dots_fp32_fma"] == before + 1
+    assert (out_f - want).abs().max() <= 1e-5 * want.abs().max()
+    assert (csum_f - want_cs).abs().max() <= 1e-5 * want_cs.abs().max()
+    assert not torch.equal(out_f, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("split", [False, True])
+def test_dots_bf16_matches_plain_on_card(cuda, split):
+    """K6 / K7 within 1e-4 of the largest output of their plain versions
+    (the tensor cores accumulate in another order than a matmul followed
+    by adds)."""
+    _, _, phi, c = mxu_micro.inputs(blocks=3, seed=4, device=cuda)
+    key = "dots_bf16x3" if split else "dots_bf16"
+    before = mk.launches[key]
+    out, csum = mk.dots_bf16(phi, c, split=split)
+    torch.cuda.synchronize()
+    assert mk.launches[key] == before + 1
+    want, want_cs = mk.dots_bf16_plain(phi, c, split=split)
+    assert (out - want).abs().max() <= 1e-4 * want.abs().max()
+    assert (csum - want_cs).abs().max() <= 1e-4 * want_cs.abs().max()
+
+
+@pytest.mark.gpu
+def test_dynamic_frame_on_card_matches_oracle(cuda):
+    """A warm session with a motion margin, rebuilt on deformed frames:
+    the last frame's hits meet _check's thresholds against the oracle on
+    that frame's triangles."""
+    v, f = scenes.cornell_box()
+    anim = AnimatedScene(v, f, device=cuda)
+    ext = v.max(0) - v.min(0)
+    s = RenderSession.create(anim.frame(0.0), verts=v,
+                             bbox_margin=float(0.26 / ext.min()))
+    rays = primary_rays(scenes.cornell_camera(), 64, 64, order="block",
+                        device=cuda)
+    for t in (0.1, 0.2, 0.3):
+        tris = anim.frame(t)
+        s.rebuild(tris)
+        hits = s.trace(rays, coherent=True)
+    assert not bool(s.grid.overflowed)
+    ref = oracle.closest_hit(rays, tris)
+    both = (hits.tri_id >= 0) & (ref.tri_id >= 0)
+    assert ((hits.tri_id >= 0) == (ref.tri_id >= 0)).float().mean() > 0.999
+    same = both & (hits.tri_id == ref.tri_id)
+    assert same.sum() > 0.995 * both.sum()
+    torch.testing.assert_close(hits.t[same], ref.t[same], rtol=1e-3,
+                               atol=1e-5)
+    assert not s.poll_overflow(recalibrate=False)
+
+
+@pytest.mark.gpu
+def test_profiling_helpers_on_card(cuda):
+    """timed and StageTimer between CUDA events; device_trace sees the
+    card's kernels."""
+    x = torch.randn(1 << 22, device=cuda)
+    s = profiling.timed(lambda: x.sort(), warmup=1, iters=3, chain=2,
+                        device=cuda)
+    assert 0 < s < 1.0
+    timer = profiling.StageTimer(device=cuda)
+    with timer.stage("sort"):
+        x.sort()
+    assert timer.stages["sort"] > 0
+    with profiling.device_trace() as prof:
+        x.sort()
+    assert sum(e.self_device_time_total for e in prof.key_averages()) > 0

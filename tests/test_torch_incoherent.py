@@ -38,6 +38,7 @@ from hagrid_tpu_torch.ops import sweep_trace as st
 from hagrid_tpu_torch.ops.sweep_kernel import sweep_blocks_plain
 from hagrid_tpu_torch.render import integrators, sampling
 from hagrid_tpu_torch.render.session import RenderSession
+from hagrid_tpu_torch.utils.config import BuildParams
 
 CPU = "cpu"
 TILE = 64
@@ -91,7 +92,7 @@ def floor():
     for key in ("ao", "shadow"):
         js._bmax_cal[(True, False, N_RAYS, key)] = (BMAX, ROWMAX)
     g = _port_grid(jg, jt)
-    s = RenderSession(structure="packet", grid=g)
+    s = RenderSession(params=BuildParams(), structure="packet", grid=g)
     hits = Hits(*(_t(getattr(jh, k)) for k in ("tri_id", "t", "u", "v")))
     return dict(v=v, f=f, jt=jt, jg=jg, g=g, jr=jr, rays=_port_rays(jr),
                 jh=jh, hits=hits, js=js, s=s)

@@ -1,0 +1,305 @@
+"""PyTorch port, sweep-cost micro-kernels K4-K7: the plain versions (what
+the wrappers run on CPU tensors) against the reference's Pallas kernels in
+interpret mode, on the same numpy inputs.
+
+The reference kernels live in scripts that run TPU code when imported, so
+only their function definitions are loaded (parsed out of the source and
+executed in a namespace with the names they use) and called through
+`pl.pallas_call(..., interpret=True)` with the scripts' own specs at a
+small shape.
+
+Tolerances: K4 and K5 atol 1e-5 on values of order 10 (XLA contracts
+a*b + c into FMAs, the port rounds every operation); K6 and K7
+1e-4 x max|ref| (a dot followed by adds against one matmul and a sum, in
+another accumulation order).
+"""
+
+import ast
+import pathlib
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.experimental import pallas as pl
+from jax.experimental.pallas import tpu as pltpu
+
+from hagrid_tpu.ops import sweep_trace as j_st
+from hagrid_tpu_torch.exp import kernel_mt20, mxu_micro
+from hagrid_tpu_torch.ops import micro_kernels as mk
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+TILE = 128
+
+
+def _reference_defs(script, names, tile=TILE):
+    """The named top-level functions of exp/<script>, defined in a fresh
+    namespace; nothing else of the script runs."""
+    path = ROOT / "exp" / script
+    tree = ast.parse(path.read_text())
+    defs = [n for n in tree.body
+            if isinstance(n, ast.FunctionDef) and n.name in names]
+    assert sorted(n.name for n in defs) == sorted(names)
+    ns = dict(jax=jax, jnp=jnp, pl=pl, pltpu=pltpu, st=j_st, TILE=tile, G=6)
+    exec(compile(ast.Module(defs, []), str(path), "exec"), ns)
+    return [ns[n] for n in names]
+
+
+def _ref_det_sweep(xt, g, tile_of, tminb, tile, nt):
+    """exp/r3_kernel_mt20.py::run_variant's call, interpreted."""
+    make_det_kernel, = _reference_defs("r3_kernel_mt20.py",
+                                       ["make_det_kernel"])
+    spec = pltpu.PrefetchScalarGridSpec(
+        num_scalar_prefetch=2, grid=(tile_of.shape[0],),
+        in_specs=[
+            pl.BlockSpec((16, tile), lambda i, t, tb: (0, t[i]),
+                         memory_space=pltpu.VMEM),
+            pl.BlockSpec((128, 20 * j_st._G), lambda i, t, tb: (i, 0),
+                         memory_space=pltpu.VMEM)],
+        out_specs=pl.BlockSpec((8, tile), lambda i, t, tb: (0, t[i]),
+                               memory_space=pltpu.VMEM),
+        scratch_shapes=[pltpu.VMEM((128, tile), jnp.float32)] * 4
+        + [pltpu.VMEM((8, tile), jnp.float32)])
+    f = pl.pallas_call(
+        make_det_kernel(tile, nt),
+        out_shape=jax.ShapeDtypeStruct((8, xt.shape[1]), jnp.float32),
+        grid_spec=spec, interpret=True)
+    return np.asarray(f(jnp.asarray(tile_of), jnp.asarray(tminb),
+                        jnp.asarray(xt), jnp.asarray(g)))
+
+
+def _ref_dots(name, x, table, rows, width, tile=TILE):
+    """exp/r4_mxu_micro.py::run_vpu / run_mxu's call, interpreted: the
+    output block is rewritten by every grid step, so the last block's
+    sums come back."""
+    kernel, = _reference_defs("r4_mxu_micro.py", [name], tile)
+    n_blocks = table.shape[0] // rows
+    spec = pltpu.PrefetchScalarGridSpec(
+        num_scalar_prefetch=0, grid=(n_blocks,),
+        in_specs=[pl.BlockSpec((16, tile), lambda i: (0, 0)),
+                  pl.BlockSpec((rows, width), lambda i: (i, 0))],
+        out_specs=pl.BlockSpec((128, tile), lambda i: (0, 0)))
+    f = pl.pallas_call(
+        kernel, out_shape=jax.ShapeDtypeStruct((128, tile), jnp.float32),
+        grid_spec=spec, interpret=True)
+    return np.asarray(f(jnp.asarray(x), jnp.asarray(table)))
+
+
+@pytest.fixture(scope="module")
+def stream():
+    """4 tiles of 128 rays, 2 blocks each, one unused block parked on the
+    dummy tile, units gathered through a permutation."""
+    xt, cols, gidx, tile_of, live, dead = (
+        a.numpy() for a in kernel_mt20.synthetic_stream(
+            tile=TILE, nt=4, blocks_per_tile=2, seed=5, device="cpu"))
+    rng = np.random.default_rng(6)
+    n_units = gidx.size
+    cols = np.concatenate([cols, rng.standard_normal(
+        (128, 128)).astype(np.float32)])          # a ninth block of rows
+    cols[-128:, 120:] = 0.0
+    gidx = rng.permutation(n_units + 32).astype(np.int32)
+    tile_of = np.concatenate([tile_of, [4]]).astype(np.int32)
+    live = np.concatenate([live, live[:1]])
+    dead = np.concatenate([dead, dead[:1]])
+    # What the reference's pre-gathered kernel reads: 120 lanes a row.
+    g = cols.reshape(-1, 4 * 128)[gidx].reshape(-1, 128)[:, :120]
+    return dict(xt=xt, cols=cols, gidx=gidx, tile_of=tile_of, live=live,
+                dead=dead, g=np.ascontiguousarray(g), nt=4)
+
+
+def _port_det(s, thr):
+    t = torch.as_tensor
+    return mk.det_sweep(t(s["xt"]), t(s["cols"]), t(s["gidx"]),
+                        t(s["tile_of"]), t(thr), TILE)
+
+
+@pytest.mark.parametrize("which", ["live", "dead"])
+def test_det_sweep_matches_reference_kernel(stream, which):
+    """K4 with the never-done threshold (every block swept) and the
+    always-done one (every block skipped: the seed comes back)."""
+    s = stream
+    n = s["nt"] * TILE
+    ref = _ref_det_sweep(s["xt"], s["g"], s["tile_of"], s[which], TILE,
+                         s["nt"])
+    t, tri, u, v = (x.numpy() for x in _port_det(s, s[which]))
+    np.testing.assert_allclose(t[:n], ref[0, :n], rtol=0, atol=1e-5)
+    np.testing.assert_array_equal(tri[:n], ref[1, :n].astype(np.int32))
+    np.testing.assert_array_equal(u[:n], ref[2, :n])
+    np.testing.assert_array_equal(v[:n], ref[3, :n])
+    assert (tri == -1).all()
+    if which == "dead":
+        np.testing.assert_array_equal(t[:n], s["xt"][14, :n])
+    else:
+        assert (t[:n] < s["xt"][14, :n]).mean() > 0.9
+    # The dummy tile owns no live block: untouched.
+    assert (t[n:] == np.float32(3e38)).all()
+
+
+def test_det_sweep_early_out_is_per_block(stream):
+    """A threshold of +0.0 skips a block once every ray's running min is
+    negative or zero, which a tile's first block achieves: the second
+    block of each tile then changes nothing."""
+    s = stream
+    thr = s["live"].copy()
+    thr[1::2] = 0
+    ref = _ref_det_sweep(s["xt"], s["g"], s["tile_of"], thr, TILE, s["nt"])
+    t = _port_det(s, thr)[0].numpy()
+    n = s["nt"] * TILE
+    np.testing.assert_allclose(t[:n], ref[0, :n], rtol=0, atol=1e-5)
+    assert (t[:n] != _port_det(s, s["live"])[0].numpy()[:n]).any()
+
+
+@pytest.mark.parametrize("n_blocks", [1, 2, 3])
+def test_dots_fp32_last_block_survives(n_blocks):
+    xt, g, _, _ = (a.numpy() for a in mxu_micro.inputs(
+        blocks=n_blocks, tile=TILE, seed=7, device="cpu"))
+    ref = _ref_dots("vpu_kernel", xt, g, 128, 128)
+    out, csum = mk.dots_fp32(torch.as_tensor(xt), torch.as_tensor(g))
+    np.testing.assert_allclose(out.numpy(), ref, rtol=0, atol=1e-5)
+    # On CPU tensors the FMA instance's call takes the same plain version.
+    for a, b in zip(mk.dots_fp32(torch.as_tensor(xt), torch.as_tensor(g),
+                                 fma=True), (out, csum)):
+        assert torch.equal(a, b)
+    assert csum.shape == (n_blocks, TILE)
+    # Every block's column sums: block b is the last of the first b + 1.
+    for b in range(n_blocks):
+        ref_b = _ref_dots("vpu_kernel", xt, g[:(b + 1) * 128], 128, 128)
+        np.testing.assert_allclose(csum[b].numpy(),
+                                   ref_b.astype(np.float64).sum(0),
+                                   rtol=0, atol=2e-4)
+
+
+@pytest.mark.parametrize("n_blocks", [1, 2, 3])
+@pytest.mark.parametrize("name,split", [("mxu1_kernel", False),
+                                        ("mxu3_kernel", True)])
+def test_dots_bf16_last_block_survives(name, split, n_blocks):
+    _, _, phi, c = (a.numpy() for a in mxu_micro.inputs(
+        blocks=n_blocks, tile=TILE, seed=8, device="cpu"))
+    ref = _ref_dots(name, phi, c, 3072, 16)
+    out, csum = mk.dots_bf16(torch.as_tensor(phi), torch.as_tensor(c),
+                             split=split)
+    tol = 1e-4 * np.abs(ref).max()
+    np.testing.assert_allclose(out.numpy(), ref, rtol=0, atol=tol)
+    for b in range(n_blocks):
+        ref_b = _ref_dots(name, phi, c[:(b + 1) * 3072], 3072, 16)
+        cs = ref_b.astype(np.float64).sum(0)
+        np.testing.assert_allclose(csum[b].numpy(), cs, rtol=0,
+                                   atol=1e-4 * np.abs(cs).max())
+    # Against the f64 product of the last block: bf16x1 keeps about three
+    # digits, bf16x3 about five.
+    exact = (c[-3072:].astype(np.float64).reshape(24, 128, 16).sum(0)
+             @ phi.astype(np.float64))
+    rel = np.abs(out.numpy() - exact).max() / np.abs(exact).max()
+    assert rel < (3e-5 if split else 1e-2)
+    assert split or rel > 1e-4
+
+
+def test_bf16_split_equals_numpy():
+    x = np.random.default_rng(9).standard_normal(4096).astype(np.float32)
+    x[:4] = [0.0, -0.0, 1.0, 3e38]
+    hi = x.astype(jnp.bfloat16).astype(np.float32)
+    lo = (x - hi).astype(jnp.bfloat16).astype(np.float32)
+    got_hi, got_lo = mk.bf16_split(torch.as_tensor(x))
+    np.testing.assert_array_equal(got_hi.numpy(), hi)
+    np.testing.assert_array_equal(got_lo.numpy(), lo)
+    np.testing.assert_array_equal(mk.bf16_round(torch.as_tensor(x)).numpy(),
+                                  hi)
+
+
+def test_kernel_mt20_record_on_cpu():
+    rec = kernel_mt20.run(device="cpu", tile=TILE, nt=4, blocks_per_tile=2,
+                          warmup=0, iters=1, chain=1)
+    assert rec["device"] == "cpu" and rec["blocks"] == 8
+    assert rec["pairs"] == 8 * 768 * TILE
+    for name in ("full", "det3", "skipped"):
+        for unit in ("ms", "us_per_block", "ps_per_pair"):
+            x = rec[f"{name}_{unit}"]
+            assert np.isfinite(x) and x > 0
+    assert "det3" in kernel_mt20.report(rec)
+
+
+def test_mxu_micro_record_on_cpu():
+    """Every key finite; the accuracy lines equal the reference script's
+    computation (exp/r4_mxu_micro.py:172-186) in numpy."""
+    rec = mxu_micro.run(device="cpu", blocks=2, tile=TILE, warmup=0,
+                        iters=1, chain=1)
+    assert rec["device"] == "cpu" and rec["blocks"] == 2
+    for name in ("vpu", "vpu_fma", "mxu1", "mxu3"):
+        for unit in ("ms", "ns_per_block"):
+            x = rec[f"{name}_{unit}"]
+            assert np.isfinite(x) and x > 0
+    _, _, phi, c = (a.numpy() for a in mxu_micro.inputs(
+        blocks=2, tile=TILE, seed=0, device="cpu"))
+    ref = c[:3072].astype(np.float64) @ phi.astype(np.float64)
+    bf = lambda a: a.astype(jnp.bfloat16).astype(np.float32)  # noqa: E731
+    ch, ph = bf(c[:3072]), bf(phi)
+    cl, plo = bf(c[:3072] - ch), bf(phi - ph)
+    b1 = ch @ ph
+    b3 = ch @ ph + ch @ plo + cl @ ph
+    for key, b in (("rel_err_bf16x1", b1), ("rel_err_bf16x3", b3)):
+        want = np.abs(b - ref).max() / np.abs(ref).max()
+        assert rec[key] == pytest.approx(want, rel=0.05)
+    assert 1e-3 < rec["rel_err_bf16x1"] < 1e-2
+    assert rec["rel_err_bf16x3"] < 3e-5
+    assert "rel err bf16x3" in mxu_micro.report(rec)
+
+
+def _dots_args():
+    xt, g, phi, c = mxu_micro.inputs(blocks=1, tile=TILE, seed=1,
+                                     device="cpu")
+    return xt, g, phi, c
+
+
+@pytest.mark.parametrize("case", ["dtype", "shape", "table", "device"])
+def test_dots_wrappers_raise(case):
+    xt, g, phi, c = _dots_args()
+    if case == "dtype":
+        with pytest.raises(TypeError):
+            mk.dots_fp32(xt.double(), g)
+        with pytest.raises(TypeError):
+            mk.dots_bf16(phi, c.to(torch.bfloat16))
+    elif case == "shape":
+        with pytest.raises(ValueError):
+            mk.dots_fp32(xt[:15], g)
+        with pytest.raises(ValueError):
+            mk.dots_bf16(phi.reshape(-1), c)
+    elif case == "table":
+        with pytest.raises(ValueError):
+            mk.dots_fp32(xt, g[:100])
+        with pytest.raises(ValueError):
+            mk.dots_bf16(phi, c[:, :8])
+        with pytest.raises(ValueError):
+            mk.dots_bf16(phi, c[:0])
+    else:
+        with pytest.raises(ValueError):
+            mk.dots_fp32(xt, g.to("meta"))
+        with pytest.raises(ValueError):
+            mk.dots_bf16(phi, c.to("meta"))
+        # A tensor that is neither on the CPU nor on a card has no kernel.
+        with pytest.raises(RuntimeError):
+            mk.dots_fp32(xt.to("meta"), g.to("meta"))
+        with pytest.raises(RuntimeError):
+            mk.dots_bf16(phi.to("meta"), c.to("meta"), split=True)
+
+
+@pytest.mark.parametrize("case", ["dtype", "shape", "device"])
+def test_det_sweep_wrapper_raises(stream, case):
+    s = stream
+    t = torch.as_tensor
+    args = [t(s["xt"]), t(s["cols"]), t(s["gidx"]), t(s["tile_of"]),
+            t(s["live"])]
+    if case == "dtype":
+        args[2] = args[2].long()
+        with pytest.raises(TypeError):
+            mk.det_sweep(*args, TILE)
+    elif case == "shape":
+        with pytest.raises(ValueError):
+            mk.det_sweep(args[0][:, :-1], *args[1:], TILE)
+        with pytest.raises(ValueError):
+            mk.det_sweep(*args[:4], args[4][:-1], TILE)
+    else:
+        with pytest.raises(ValueError):
+            mk.det_sweep(args[0], args[1].to("meta"), *args[2:], TILE)
+        with pytest.raises(RuntimeError):
+            mk.det_sweep(*(a.to("meta") for a in args), TILE)
