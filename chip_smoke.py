@@ -1,15 +1,19 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch + CUDA port (hagrid_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--profile [PATH]]
+    python3 chip_smoke.py [--profile [PATH]] [--variants]
 
 Phases, one line each (any failure exits non-zero before the result):
 1. the card (nvidia-smi name and power limit) and the environment;
-2. build of the CUDA kernels from hagrid_tpu_torch/csrc (nvcc, sm_90a);
+2. build of the CUDA kernels from hagrid_tpu_torch/csrc (nvcc, sm_90a),
+   ptxas's registers and spills;
 3. the closest-hit sweep kernel against its plain PyTorch version on the
    card: the Sponza-scale scene's round-0 stream of a 1024x1024 frame
    (gather call and pre-gathered call) and a random stream, with both
-   times, the blocks the early-out skipped and the kernel's bound;
+   times, the blocks the early-out skipped and the kernel's bound, the
+   stream's blocks per tile against the card's resident CTA slots and the
+   sweep's launch plan, which must equal its plain version ([balance]);
+   with --variants, the kernel at other chunk sizes ([variants]);
 4. the main path at full size: RenderSession.create, 3 warm rebuilds,
    1024x1024 block-order primaries, coherent trace (times on the card);
 5. correctness: 4096 sampled rays against the brute-force oracle on the
@@ -22,13 +26,17 @@ Phases, one line each (any failure exits non-zero before the result):
 7. the any-hit sweep kernel (K3) against its plain version: the round-0
    stream of the first AO wave of the Sponza frame (4 samples' shape,
    max_dist 0.1 x the largest extent, origin-sorted, binned) and a random
-   stream with finite tmax; hit/miss must agree exactly;
+   stream with finite tmax; hit/miss must agree exactly; [balance] (and
+   [variants]) as in phase 3;
 8. the incoherent slice at full width through the user's entry points:
    render_ao 1024x1024 x 4 samples, one shadow wave, path_trace 512x512
    x 1 spp x 4 bounces (times on the card, calibrated budgets, overflow,
-   kernel launches);
+   kernel launches, per run);
 9. correctness on the card: 4096 sampled AO, shadow and path-bounce-1
-   rays against the brute-force oracle, and the AO image's mean;
+   rays against the brute-force oracle, and the AO image's mean; then the
+   closest-hit kernel against its plain version on path bounce 1's
+   round-0 stream (tile 256, the calibrated "path" budgets), with its
+   time, bound, [balance] (and [variants]);
 10. dynamic frames at full width: AnimatedScene on the Sponza-scale scene,
    a fresh session with a motion margin, one untimed frame (calibration),
    then 5 frames of rebuild + 1024x1024 coherent trace (frames per second
@@ -37,7 +45,8 @@ Phases, one line each (any failure exits non-zero before the result):
    last deformed frame against the oracle on that frame's triangles;
 11. the sweep-cost micro-kernels K4-K7 (det-only sweep, FP32 dots, bf16
    and bf16x3 tensor-core dots) against their plain versions at the
-   reference scripts' full shapes, with their bounds; K5-K7, of which
+   reference scripts' full shapes, with their bounds (K4 timed from CUDA
+   graph replays, as path A times it); K5-K7, of which
    only the last block's sums come back, also have every block's column
    sums compared and are timed at B and B/2 blocks (the ratio shows the
    time covers every block); then the
@@ -94,11 +103,12 @@ REPLACES = ("hagrid_tpu/ops/sweep_trace.py:248 (K2, _make_kernel_dma); "
             "hagrid_tpu/ops/sweep_trace.py:210 (K1, _make_kernel)")
 REPLACES_ANYHIT = ("hagrid_tpu/ops/sweep_trace.py:132-133,179-180 (K3, the "
                    "any_hit=True instances of K1/K2)")
-# FP32 operations per ray-ref pair, counted from test_ref in csrc/sweep.cu:
-# 5 (det) + 6 (t*det) + 11 (u*det) + 11 (v*det) + 1 division + 3 (t, u, v)
-# + 2 (u+v, 1-(u+v)) + 1 fabs + 7 compares (u, v, 1-u-v >= 0, |det| >
-# 1e-12, t > tmin, t < best, t == best); any hit adds t < tmax.
-OPS_PER_PAIR = {False: 47, True: 48}
+# FP32 operations per ray-ref pair, counted from HitBody::test in
+# csrc/sweep.cu: 5 (det) + 6 (t*det) + 11 (u*det) + 11 (v*det) + 1 (w) + 2
+# (a*hi, a*lo) + 2 (us+vs, a+w) + 6 compares, for both instances (any hit
+# folds tmax into hi). The exact path of the few pairs the test passes is
+# not counted, so the bound stays a lower bound.
+OPS_PER_PAIR = {False: 44, True: 44}
 REFS_PER_BLOCK = 768
 # One H100 SXM (NVIDIA's data sheet, at 700 W): FP32 outside the tensor
 # cores, and HBM3. The peak counts an FMA as 2 operations; the kernel is
@@ -169,12 +179,12 @@ def swept_rays(tile_of, n_cols, tile):
     return swept[:nt].repeat_interleave(tile)
 
 
-def compare_sweeps(name, got, ref, tile_of):
+def compare_sweeps(name, got, ref, tile_of, tile=TILE):
     """Kernel vs plain on one stream: ids equal on >= 99.99% of the rays
     of swept tiles (the plain version ignores the early-out, which can
     only matter on exact-t ties at a threshold), t within rtol 1e-5 where
     the ids agree. Returns max |dt| over rays with equal hit ids."""
-    rays = swept_rays(tile_of, got[0].numel(), TILE)
+    rays = swept_rays(tile_of, got[0].numel(), tile)
     n = rays.numel()
     t_k, id_k = got[0][:n][rays], got[1][:n][rays]
     t_p, id_p = ref[0][:n][rays], ref[1][:n][rays]
@@ -287,6 +297,74 @@ def bound(args, any_hit, what):
     return out
 
 
+def run_lengths(tile_of, nt):
+    """Blocks per tile over the tiles that own at least one live block:
+    (tiles, blocks, mean, p50, p90, p99, max)."""
+    per = torch.bincount(tile_of[tile_of < nt].long(), minlength=nt)
+    per = per[per > 0].double()
+    if per.numel() == 0:
+        return dict(tiles=0, blocks=0, mean=0.0, p50=0.0, p90=0.0, p99=0.0,
+                    max=0)
+    q = torch.quantile(per, torch.tensor([0.5, 0.9, 0.99], device=per.device,
+                                         dtype=torch.float64)).tolist()
+    return dict(tiles=per.numel(), blocks=int(per.sum()),
+                mean=float(per.mean()), p50=q[0], p90=q[1], p99=q[2],
+                max=int(per.max()))
+
+
+def balance(what, args, any_hit, ms, b):
+    """What sets a sweep's time on one stream: the distribution of blocks
+    per tile, the launch plan's chunks (C, CTAs with work, the longest
+    chunk) against the card's resident slots (occupancy calculator x
+    SMs), and the tail: the longest chunk times one CTA's time per block,
+    where one CTA's time per block is the kernel's time x the busy slots
+    / the blocks swept (every slot busy, each at 1/slots of the card).
+    The plan is the plan kernel's, which must equal its plain version."""
+    xt, tile_of, tile = args[0], args[3], args[5]
+    nt = xt.shape[1] // tile - 1
+    rl = run_lengths(tile_of, nt)
+    per_sm, sms = sk.resident_ctas(tile, any_hit)
+    slots = per_sm * sms
+    chunk = sk.chunk_blocks(tile_of.numel())
+    plan = sk.chunk_plan(tile_of, nt, chunk)
+    same = all(torch.equal(a, w) for a, w in zip(
+        plan, sk.chunk_plan_plain(tile_of, nt, chunk)))
+    check(same, f"{what}: the plan kernel differs from its plain version")
+    table = plan[0]
+    counts = table[:, 2][table[:, 2] > 0]
+    ctas = counts.numel()
+    longest = int(counts.max()) if ctas else 0
+    swept = max(1, b["live_blocks"] - b["blocks_skipped"])
+    block_ms = ms * min(slots, ctas) / swept
+    tail_ms = longest * block_ms
+    print(f"[balance] {what}: {rl['tiles']} tiles own {rl['blocks']} "
+          f"blocks, blocks per tile mean {rl['mean']:.2f}, p50 "
+          f"{rl['p50']:.0f}, p90 {rl['p90']:.0f}, p99 {rl['p99']:.0f}, max "
+          f"{rl['max']}; C {chunk}: {ctas} CTAs with work of {table.shape[0]}"
+          f" launched, against {slots} resident slots ({per_sm} a SM x "
+          f"{sms} SMs); one CTA's time per block {block_ms:.4f} ms; longest "
+          f"chunk ({longest} blocks) x that = {tail_ms:.3f} ms beside the "
+          f"kernel's {ms:.3f} ms; plan kernel equal to its plain version "
+          f"{same}", flush=True)
+
+
+def variants(what, args, any_hit, card, chunks=(8, 16, 32, 64, None)):
+    """The kernel's time on one stream at other chunk sizes C (None: whole
+    runs, one CTA a tile, the parent's balance), between two timings of
+    the default, all in this call."""
+    n_blocks = args[3].numel()
+    rows = [("default", None)]
+    rows += [(f"C={c or 'whole'}", c or n_blocks) for c in chunks]
+    rows.append(("default again", None))
+    got = []
+    for name, c in rows:
+        ms = cuda_ms(lambda: sk._sweep_cuda(*args, any_hit, None, c),
+                     iters=5, warmup=1)
+        got.append((name, ms))
+    print(f"[variants] {what} ({card}): " + ", ".join(
+        f"{n} {ms:.3f} ms" for n, ms in got), flush=True)
+
+
 def tri_rows(cols, n_tris):
     """f32[n_tris, 20]: each triangle's coefficient row of the linear
     Moller-Trumbore form, taken from the grid's group rows (every ref of
@@ -299,8 +377,8 @@ def tri_rows(cols, n_tris):
 
 
 def linear_hit(x, g):
-    """The kernel's acceptance test (test_ref in csrc/sweep.cu, with the
-    any-hit t < tmax) of rays x f32[16, k] against coefficient rows
+    """The kernel's acceptance test (HitBody::exact in csrc/sweep.cu, with
+    the any-hit t < tmax) of rays x f32[16, k] against coefficient rows
     g f32[k, 20], op for op: (ok, t)."""
     ox, oy, oz, dx, dy, dz, mx, my, mz = x[1:10]
     n0, n1, n2, b0, b1, b2, c0, c1, c2, d0, d1, d2, e0, e1, e2, f = g[:, :16].t()
@@ -431,7 +509,7 @@ def profile(what, fn, card, path, runs=3):
             out.writelines(f"{ms:.4f}\t{n}\t{k}\n" for ms, n, k in ops)
 
 
-def anyhit_phase(session, rays, hits, tris, card):
+def anyhit_phase(session, rays, hits, tris, card, with_variants):
     """Phase 7: the first AO sample's wave of the Sponza frame, traced
     once through trace_sorted (which calibrates the "ao" budgets), then
     its round-0 stream at those budgets, and a random stream with finite
@@ -465,6 +543,9 @@ def anyhit_phase(session, rays, hits, tris, card):
     ms, plain_ms = times(args, card, "any-hit kernel (K3) at Sponza AO wave "
                          "0 round 0", any_hit=True, plain_iters=1)
     b = bound(args, True, "any-hit sweep, Sponza AO wave 0 round 0")
+    balance("any-hit sweep, Sponza AO wave 0 round 0", args, True, ms, b)
+    if with_variants:
+        variants("any-hit sweep, Sponza AO wave 0 round 0", args, True, card)
     del got, ref
     rxt, rgidx, rtile_of, rtminb = random_stream(
         grid, DEV, nt=64, seed=1, tile=tile, any_hit=True)
@@ -506,7 +587,11 @@ def slice_phase(session, cam, card):
     print(f"[slice] first runs (calibration) {time.perf_counter() - t0:.2f} "
           f"s; overflow grown after them: {grew}", flush=True)
     reset_launches()
-    ms = {what: cuda_ms(fn, iters=2, warmup=0) for what, fn in runs.items()}
+    ms, per_run = {}, {}
+    for what, fn in runs.items():
+        before = dict(sk.launches)
+        ms[what] = cuda_ms(fn, iters=2, warmup=0)
+        per_run[what] = {k: n - before[k] for k, n in sk.launches.items()}
     torch.cuda.synchronize()
     launches = dict(sk.launches)
     ovf = session.poll_overflow(recalibrate=False)
@@ -524,20 +609,25 @@ def slice_phase(session, cam, card):
     cal = {str(k): v for k, v in session._bmax_cal.items()}
     print(f"[slice] calibrated (bmax, rowmax) per key (any_hit, coherent, "
           f"rays, cal_key): {cal}; kernel launches in the timed runs "
-          f"{launches}; poll_overflow {ovf}", flush=True)
+          f"{launches}, by run {per_run}; poll_overflow {ovf}", flush=True)
     check(not ovf, "the timed incoherent runs overflowed their budgets")
     check(launches["sweep_blocks_anyhit"] > 0,
           "the timed runs did not launch the any-hit kernel")
-    check(launches["sweep_blocks"] > 0,
-          "the timed runs did not launch the closest-hit kernel")
+    check(per_run["path_trace"]["sweep_blocks"] > 0,
+          "the timed path runs did not launch the closest-hit kernel")
+    launches["path_trace"] = per_run["path_trace"]["sweep_blocks"]
     return launches, ao_img, runs
 
 
 def correctness_phase(session, wave, wave_hits, rays, hits, cam, tris,
-                      ao_img):
+                      ao_img, card, with_variants):
     """Phase 9: 4096 sampled rays of an AO wave and of a shadow wave
     against oracle.any_hit, 4096 rays of path bounce 1 against
-    oracle.closest_hit (_check's thresholds), and the AO image's mean."""
+    oracle.closest_hit (_check's thresholds), and the AO image's mean;
+    then the closest-hit kernel against its plain version on path bounce
+    1's round-0 stream (binned, incoherent, tile 256, the calibrated
+    "path" budgets): the stream path_trace spends most on. Returns that
+    stream's numbers."""
     check_anyhit_sample("AO wave 0", wave, wave_hits, tris)
     p, n, found = hit_points_normals(rays, hits, tris.n)
     sh, _ = integrators.shadow_rays(p, n, found, LIGHT)
@@ -557,12 +647,42 @@ def correctness_phase(session, wave, wave_hits, rays, hits, cam, tris,
                             torch.where(found, float("inf"), 0.0))
     b1_hits = integrators.trace_sorted(session, b1, cal_key="path")
     check_closest_sample("path bounce 1", b1, b1_hits, tris)
+    path = path_bounce_stream(session, b1, card, with_variants)
     mean = float(ao_img.mean())
     print(f"[image] AO {AO_SIZE}^2 x {AO_SAMPLES} mean {mean:.4f}",
           flush=True)
     check(0.0 < mean < 1.0, f"AO image mean {mean} outside (0, 1)")
     check(not session.poll_overflow(recalibrate=False),
           "the correctness waves overflowed")
+    return path
+
+
+def path_bounce_stream(session, b1, card, with_variants):
+    """K2 on path bounce 1's round-0 stream, made as trace_sorted makes
+    it: kernel against plain (ids, t), times, skip count, bound and
+    balance."""
+    grid = session.grid
+    bmax, rowmax = session._bmax_cal[(False, False, b1.count, "path")]
+    srt, _ = sortrays.sort_rays(b1, grid.bbox_lo, grid.bbox_hi, bits=10,
+                                origin_major=True)
+    xt, gidx, tile_of, tminb, tile = first_round_stream(
+        grid, srt, any_hit=False, coherent=False, bmax=bmax, rowmax=rowmax)
+    nt = xt.shape[1] // tile - 1
+    print(f"[path] bounce 1 ({b1.count} rays): budgets ({bmax}, {rowmax}); "
+          f"round-0 stream {int((tile_of < nt).sum())} blocks of "
+          f"{tile_of.numel()} budgeted, tile {tile}", flush=True)
+    got, ref, args = both_sweeps(xt, grid.cols, gidx, tile_of, tminb, tile)
+    err = compare_sweeps("closest-hit kernel (K2), path bounce 1 round 0",
+                         got, ref, tile_of, tile)
+    del got, ref
+    ms, plain_ms = times(args, card, "closest-hit kernel (K2) at path bounce "
+                         "1 round 0", plain_iters=1)
+    b = bound(args, False, "closest-hit sweep, path bounce 1 round 0")
+    balance("closest-hit sweep, path bounce 1 round 0", args, False, ms, b)
+    if with_variants:
+        variants("closest-hit sweep, path bounce 1 round 0", args, False,
+                 card)
+    return dict(err=err, ms=ms, plain_ms=plain_ms, bound=b)
 
 
 def dynamic_phase(v, f, rays, card):
@@ -666,7 +786,7 @@ def nbytes(*tensors):
     return sum(x.numel() * x.element_size() for x in tensors)
 
 
-def micro_phase(card):
+def micro_phase(card, dev):
     """Phase 11: K4-K7 against their plain versions at full shape, their
     times and bounds, then path A's two records with launch counts from
     zero. Returns the kernels' entries for the JSON line."""
@@ -691,8 +811,12 @@ def micro_phase(card):
         check(same, f"det_sweep differs from its plain version ({name})")
     # Every tile's output was compared above, so K4 needs no B against
     # B/2 timing (its fixed part, the `skipped` time, is a fifth of it).
-    ms = cuda_ms(lambda: mk.det_sweep(xt, cols, gidx, tile_of, live, TILE),
-                 iters=20, warmup=2)
+    # Timed from CUDA graph replays, as path A times it: device time, no
+    # host time between the calls (replays do not pass the launch count).
+    chain = 4
+    ms = cuda_ms(kernel_mt20.graphed(
+        lambda: mk.det_sweep(xt, cols, gidx, tile_of, live, TILE), chain,
+        dev), iters=5, warmup=1) / chain
     plain_ms = cuda_ms(lambda: mk.det_sweep_plain(xt, cols, gidx, tile_of,
                                                   live, TILE),
                        iters=1, warmup=0)
@@ -813,7 +937,7 @@ def micro_phase(card):
     return list(entries.values())
 
 
-def main(profile_path=False) -> int:
+def main(profile_path=False, with_variants=False) -> int:
     if not torch.cuda.is_available():
         print("FAIL: torch.cuda.is_available() is false; this smoke run "
               "needs an NVIDIA GPU", file=sys.stderr)
@@ -859,6 +983,11 @@ def main(profile_path=False) -> int:
                          tile_of)
     ms, plain_ms = times(args, card, "gather call at Sponza 1024^2 round 0")
     bound_k12 = bound(args, False, "closest-hit sweep, Sponza 1024^2 round 0")
+    balance("closest-hit sweep, Sponza 1024^2 round 0", args, False, ms,
+            bound_k12)
+    if with_variants:
+        variants("closest-hit sweep, Sponza 1024^2 round 0", args, False,
+                 card, chunks=(4, None))
     # The pre-gathered (K1) call: the gathered stream as cols, gidx = arange.
     g_round = grid.cols.reshape(-1, 4, 128)[gidx.long()].reshape(-1, 128)
     seq = torch.arange(gidx.numel(), dtype=torch.int32, device=dev)
@@ -949,20 +1078,20 @@ def main(profile_path=False) -> int:
           "golden render overflowed")
 
     # 7. the any-hit kernel (K3) against its plain version
-    ao = anyhit_phase(session, rays, hits, tris, card)
+    ao = anyhit_phase(session, rays, hits, tris, card, with_variants)
 
     # 8. the incoherent slice through the user's entry points
     slice_launches, ao_img, slice_runs = slice_phase(session, cam, card)
 
     # 9. correctness of the incoherent waves on the card
-    correctness_phase(session, ao["wave"], ao["wave_hits"], rays, hits, cam,
-                      tris, ao_img)
+    path = correctness_phase(session, ao["wave"], ao["wave_hits"], rays, hits,
+                             cam, tris, ao_img, card, with_variants)
 
     # 10. dynamic frames at full width
     dyn = dynamic_phase(v, f, rays, card)
 
     # 11. the sweep-cost micro-kernels and path A's records
-    micro_kernels = micro_phase(card)
+    micro_kernels = micro_phase(card, dev)
 
     # 6. optional device-time breakdown, run last
     if profile_path is not False:
@@ -985,12 +1114,17 @@ def main(profile_path=False) -> int:
     kernels = [
         dict(name="sweep_blocks", route="cuda", source=KERNEL_SOURCE,
              replaces=REPLACES, launches=launches,
-             max_abs_err=max(err, err1, err_r), ms=ms, plain_ms=plain_ms,
+             max_abs_err=max(err, err1, err_r, path["err"]), ms=ms,
+             plain_ms=plain_ms,
              bound_ms=bound_k12["bound_ms"], bound_by=bound_k12["bound_by"],
              library_ms=None, blocks_skipped=bound_k12["blocks_skipped"],
              bound_ms_no_fma=bound_k12["bound_ms_no_fma"],
              ms_pregathered=ms1, plain_ms_pregathered=plain_ms1,
-             launches_dynamic=dyn["launches"]),
+             launches_dynamic=dyn["launches"],
+             launches_path=slice_launches["path_trace"],
+             ms_incoherent=path["ms"], plain_ms_incoherent=path["plain_ms"],
+             bound_ms_incoherent=path["bound"]["bound_ms"],
+             blocks_skipped_incoherent=path["bound"]["blocks_skipped"]),
         dict(name="sweep_blocks_anyhit", route="cuda", source=KERNEL_SOURCE,
              replaces=REPLACES_ANYHIT,
              launches=slice_launches["sweep_blocks_anyhit"],
@@ -1012,8 +1146,11 @@ if __name__ == "__main__":
     ap.add_argument("--profile", nargs="?", const=None, default=False,
                     metavar="PATH", help="add phase 6; write the full "
                     "per-op device times to PATH")
+    ap.add_argument("--variants", action="store_true",
+                    help="also time the sweep at other chunk sizes")
     try:
-        sys.exit(main(ap.parse_args().profile))
+        a = ap.parse_args()
+        sys.exit(main(a.profile, a.variants))
     except SmokeFailure as e:
         print(f"FAIL: {e}", file=sys.stderr)
         sys.exit(1)

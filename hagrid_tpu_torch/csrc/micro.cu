@@ -4,13 +4,15 @@
 // never calls them.
 //
 // K4, det_sweep_kernel: replaces exp/r3_kernel_mt20.py::make_det_kernel.
-//   The production shell (csrc/sweep_shell.cuh: one CUDA block per tile
-//   walking its run of stream blocks, early-out vote, 4-piece staging, two
-//   rays a thread, final flush) with the body cut to det = d.n per ref and
-//   a running min. Output per ray: t = min(seed, min det), id = -1,
-//   u = v = 0. Bound on this card: FP32 operations (6 per pair: 3
-//   multiplies, 2 adds, 1 min) against 64 KB staged per stream block; the
-//   staging and the two barriers per piece are what it is there to expose.
+//   The production shell (csrc/sweep_shell.cuh: the plan, one CTA per
+//   chunk of a tile's run of stream blocks, here always the whole run,
+//   early-out vote, bulk copies into a four-piece ring, two rays a
+//   thread, final flush, the resolve pass) with the body cut to
+//   det = d.n per ref and a running min.
+//   Output per ray: t = min(seed, min det), id = -1, u = v = 0. Bound on
+//   this card: FP32 operations (6 per pair: 3 multiplies, 2 adds, 1 min)
+//   against 64 KB staged per stream block; the staging and the barrier
+//   per piece are what it is there to expose.
 //   `full - det3` is the production body, `det3 - skipped` the staging.
 //
 // K5, dots_fp32_kernel: replaces exp/r4_mxu_micro.py::vpu_kernel. Per
@@ -61,13 +63,19 @@ using namespace sweep_shell;
 constexpr int kTile = 512;          // rays of K5-K7
 constexpr int kBlockRows = 128;     // group rows per stream block
 constexpr int kDotThreads = 256;
+// K5 stages its block in 16 KB pieces of 32 group rows (its own layout,
+// independent of the sweep shell's ring).
+constexpr int kDotPieceRows = 32;
+constexpr int kDotPieceF4 = kDotPieceRows * kRowF4;
 
 // ---------------------------------------------------------------- K4
 
 struct DetBody {
+  static __device__ __forceinline__ void bounds(RayState&) {}
+
   static __device__ __forceinline__ void test(RayState& r, const float4 q0,
                                               const float4, const float4,
-                                              const float4, int) {
+                                              const float4, const float4*) {
     const float det = r.dx * q0.x + r.dy * q0.y + r.dz * q0.z;
     r.bt = fminf(r.bt, det);
   }
@@ -96,7 +104,7 @@ template <bool kFma>
 __global__ void __launch_bounds__(kDotThreads) dots_fp32_kernel(
     const float* __restrict__ xt, const float4* __restrict__ g,
     float* __restrict__ out, float* __restrict__ csum, int n_blocks) {
-  __shared__ float4 piece[kPieceF4];
+  __shared__ float4 piece[kDotPieceF4];
   const int b = blockIdx.x;
   const bool last = b == n_blocks - 1;
   float ox[2], oy[2], oz[2], dx[2], dy[2], dz[2], mx[2], my[2], mz[2];
@@ -116,12 +124,12 @@ __global__ void __launch_bounds__(kDotThreads) dots_fp32_kernel(
     cs[k] = 0.0f;
   }
   const float4* rows = g + (size_t)b * kBlockRows * kRowF4;
-  for (int p = 0; p < kBlockRows / kPieceRows; ++p) {
+  for (int p = 0; p < kBlockRows / kDotPieceRows; ++p) {
     __syncthreads();  // the previous piece has been consumed
-    for (int i = threadIdx.x; i < kPieceF4; i += kDotThreads)
-      piece[i] = rows[p * kPieceF4 + i];
+    for (int i = threadIdx.x; i < kDotPieceF4; i += kDotThreads)
+      piece[i] = rows[p * kDotPieceF4 + i];
     __syncthreads();
-    for (int row = 0; row < kPieceRows; ++row) {
+    for (int row = 0; row < kDotPieceRows; ++row) {
       const float4* rp = piece + row * kRowF4;
       float acc[2] = {0.0f, 0.0f};
 #pragma unroll
@@ -152,7 +160,7 @@ __global__ void __launch_bounds__(kDotThreads) dots_fp32_kernel(
       for (int k = 0; k < 2; ++k) {
         cs[k] = cs[k] + acc[k];
         if (last)
-          out[(p * kPieceRows + row) * kTile + threadIdx.x
+          out[(p * kDotPieceRows + row) * kTile + threadIdx.x
               + k * kDotThreads] = acc[k];
       }
     }
@@ -307,20 +315,20 @@ __global__ void __launch_bounds__(kDotThreads) dots_bf16_kernel(
 // C entry points (loaded with ctypes). Each launches on `stream`, does not
 // synchronise and returns cudaGetLastError() of its launch.
 
-// K4: the arguments of hagrid_sweep without any_hit and skipped.
+// K4: the arguments of hagrid_sweep without any_hit, skipped, partial and
+// C: every tile is one chunk (C = n_blocks, so n_rows = nt + 1).
 extern "C" int hagrid_det_sweep(const float* xt, int n_cols,
                                 const float* cols, const int* gidx,
-                                const int* bstart, const int* bend,
+                                const int* tile_of, int n_blocks,
                                 const int* tminb, float* out_t, int* out_id,
                                 float* out_u, float* out_v, int nt, int tile,
-                                void* stream) {
-  if (!sweep_shell::launch_ok(nt, tile)) return (int)cudaErrorInvalidValue;
-  const dim3 grid(nt), block(tile / sweep_shell::kRaysPerThread);
-  sweep_shell::sweep_kernel<DetBody, false>
-      <<<grid, block, 0, (cudaStream_t)stream>>>(
-      xt, n_cols, reinterpret_cast<const float4*>(cols), gidx, bstart, bend,
-      tminb, out_t, out_id, out_u, out_v, tile, nullptr);
-  return (int)cudaGetLastError();
+                                int* plan, void* stream) {
+  const sweep_shell::Params p{
+      xt, n_cols, reinterpret_cast<const float4*>(cols), gidx, nullptr,
+      tminb, out_t, out_id, out_u, out_v, tile, nullptr, nullptr};
+  const sweep_shell::Plan q{tile_of, n_blocks, nt, n_blocks, nt + 1, plan};
+  return (int)sweep_shell::launch<DetBody, false>(p, q,
+                                                  (cudaStream_t)stream);
 }
 
 // K5: xt f32[16, 512], g f32[n_blocks * 128, 128] -> out f32[128, 512]

@@ -13,10 +13,16 @@ tile, every block live, one gather unit per stream slot):
             early-out (an "always done" threshold): the shell without
             staging.
 So `full - det3` is the production body and `det3 - skipped` the staging.
-Each is given as ms, us per block and ps per ray-ref pair. On the card the
-times come from CUDA events over back-to-back launches (the reference's
-host-clock timing of blocking calls has no counterpart); every call goes
-through its wrapper, whose few small torch ops are the same for all three.
+Each is given as ms, us per block and ps per ray-ref pair. On the card
+`chain` calls of each are captured once in a CUDA graph and the replays
+are timed between CUDA events (the reference's host-clock timing of
+blocking calls has no counterpart): the times are the device's, the
+kernel and the wrapper's small torch ops (about the same for all three),
+with no host time between them. A replay does not go through the
+wrappers, so `launches` counts only the captured calls. `skipped_host`
+times the `skipped` calls back to back between CUDA events without a
+graph, as PR 3's record timed all three: its device work is small, so it
+reads the time the wrapper takes on the host to issue one call.
 
 The stream is random normals from a seeded numpy generator, in the port's
 layout: `cols` f32[4k, 128] with 6 refs x 20 coefficients and 8 zero pad
@@ -66,6 +72,22 @@ def synthetic_stream(tile=512, nt=512, blocks_per_tile=8, seed=0,
         np.full(n_blocks, ALWAYS_DONE, np.int32)))
 
 
+def graphed(fn, chain, device):
+    """A function that replays `chain` calls of fn captured in one CUDA
+    graph (fn is called once first, outside the capture, so that its
+    allocations exist)."""
+    side = torch.cuda.Stream(device)
+    side.wait_stream(torch.cuda.current_stream(device))
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream(device).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(chain):
+            fn()
+    return graph.replay
+
+
 def run(device=None, tile=512, nt=512, blocks_per_tile=8, seed=0, warmup=2,
         iters=5, chain=4) -> dict:
     """The record: sizes, the device the times were taken on, and
@@ -82,8 +104,15 @@ def run(device=None, tile=512, nt=512, blocks_per_tile=8, seed=0, warmup=2,
     }
     rec = dict(device=device_name(dev), tile=tile, tiles=nt,
                blocks=n_blocks, pairs=pairs)
+    if dev.type == "cuda":
+        runs["skipped_host"] = runs["skipped"]
     for name, fn in runs.items():
-        s = timed(fn, warmup=warmup, iters=iters, chain=chain, device=dev)
+        if dev.type == "cuda" and name != "skipped_host":
+            s = timed(graphed(fn, chain, dev), warmup=warmup, iters=iters,
+                      device=dev) / chain
+        else:
+            s = timed(fn, warmup=warmup, iters=iters, chain=chain,
+                      device=dev)
         rec[f"{name}_ms"] = s * 1e3
         rec[f"{name}_us_per_block"] = s * 1e6 / n_blocks
         rec[f"{name}_ps_per_pair"] = s * 1e12 / pairs
@@ -94,7 +123,8 @@ def report(rec: dict) -> str:
     lines = [f"{name:<8}: {rec[name + '_ms']:8.3f} ms = "
              f"{rec[name + '_us_per_block']:7.3f} us/block = "
              f"{rec[name + '_ps_per_pair']:6.2f} ps/pair"
-             for name in ("full", "det3", "skipped")]
+             for name in ("full", "det3", "skipped", "skipped_host")
+             if name + "_ms" in rec]
     lines.append(f"({rec['blocks']} blocks, {rec['tiles']} tiles of "
                  f"{rec['tile']} rays, {rec['pairs']} pairs, on "
                  f"{rec['device']})")

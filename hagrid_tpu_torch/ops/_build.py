@@ -107,16 +107,20 @@ def load():
     if _lib is None:
         lib = ctypes.CDLL(str(build()))
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.hagrid_sweep.argtypes = [p, i, p, p, p, p, p, p, p, p, p, i, i,
-                                     i, p, p]
+        lib.hagrid_sweep.argtypes = [p, i, p, p, p, i, p, p, p, p, p, i, i,
+                                     i, i, i, p, p, p, p]
         lib.hagrid_sweep.restype = i
-        lib.hagrid_det_sweep.argtypes = [p, i, p, p, p, p, p, p, p, p, p, i,
-                                         i, p]
+        lib.hagrid_sweep_plan.argtypes = [p, i, i, i, i, p, p]
+        lib.hagrid_sweep_plan.restype = i
+        lib.hagrid_det_sweep.argtypes = [p, i, p, p, p, i, p, p, p, p, p, i,
+                                         i, p, p]
         lib.hagrid_det_sweep.restype = i
         lib.hagrid_dots_fp32.argtypes = [p, p, p, p, i, i, p]
         lib.hagrid_dots_fp32.restype = i
         lib.hagrid_dots_bf16.argtypes = [p, p, p, p, i, i, p]
         lib.hagrid_dots_bf16.restype = i
+        lib.hagrid_sweep_occupancy.argtypes = [i, i, p]
+        lib.hagrid_sweep_occupancy.restype = i
         lib.hagrid_error_string.argtypes = [i]
         lib.hagrid_error_string.restype = ctypes.c_char_p
         _lib = lib

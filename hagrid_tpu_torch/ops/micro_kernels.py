@@ -115,13 +115,17 @@ def det_sweep(xt, cols, gidx, tile_of, tminb, tile):
     tensors; anything else raises."""
     if xt.device.type == "cpu":
         return det_sweep_plain(xt, cols, gidx, tile_of, tminb, tile)
-    nt, out, runs = cuda_launch_args(xt, cols, gidx, tile_of, tminb, tile)
-    if runs is None:
+    # One chunk per tile (C = the budget): the det body keeps no key to
+    # merge split tiles by.
+    nt, _, rows, out, plan = cuda_launch_args(
+        xt, cols, gidx, tile_of, tminb, tile, chunk=tile_of.numel())
+    if rows == 0:
         return out
     lib = _build.load()
     err = lib.hagrid_det_sweep(
-        _ptr(xt), xt.shape[1], _ptr(cols), _ptr(gidx), *map(_ptr, runs),
-        _ptr(tminb), *map(_ptr, out), nt, tile, _stream(xt.device))
+        _ptr(xt), xt.shape[1], _ptr(cols), _ptr(gidx), _ptr(tile_of),
+        tile_of.numel(), _ptr(tminb), *map(_ptr, out), nt, tile,
+        _ptr(plan), _stream(xt.device))
     raise_on(lib, err, "det-only sweep")
     launches["det_sweep"] += 1
     return out

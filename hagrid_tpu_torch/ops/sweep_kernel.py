@@ -28,7 +28,12 @@ behind the ray's closest hit.
 `sweep_blocks` runs the CUDA kernel for CUDA tensors and the plain
 version `sweep_blocks_plain` for CPU tensors; it counts kernel launches
 per instance in `launches` ("sweep_blocks" closest hit,
-"sweep_blocks_anyhit" any hit).
+"sweep_blocks_anyhit" any hit). On the card each call is one C call that
+launches three kernels: a plan kernel cuts each tile's run of blocks into
+chunks of at most C blocks (`chunk_plan`; sized from shapes, no host
+read), the sweep runs one CTA a chunk, and a resolve pass merges the
+chunks of a split tile per ray by the plain version's (t, id) key, so the
+result is the same function.
 """
 
 from __future__ import annotations
@@ -46,6 +51,11 @@ _COEFS = 20
 _BIG = 3e38
 _KEY_NONE = torch.iinfo(torch.int64).max
 _PAIRS_PER_CHUNK = 1 << 23   # ray-ref pairs the plain version holds at once
+# The kernel's work split (chunk_blocks): the fewest blocks of a chunk, and
+# the chunks a full budget is cut into.
+MIN_CHUNK = 16
+CHUNK_TARGET = 16384
+PLAN_BINS = 64   # the plan kernel's size classes (kPlanBins)
 
 # Kernel launches per instance, counted where the kernel is launched.
 launches = {"sweep_blocks": 0, "sweep_blocks_anyhit": 0}
@@ -153,11 +163,93 @@ def sweep_blocks_plain(xt, cols, gidx, tile_of, tminb, tile, any_hit=False):
     return out_t, out_id, out_u, out_v
 
 
-def cuda_launch_args(xt, cols, gidx, tile_of, tminb, tile):
+def chunk_blocks(n_blocks: int) -> int:
+    """C, the most stream blocks one CTA sweeps, from the budget alone
+    (no read of the device): at least MIN_CHUNK, so that coherent waves'
+    short runs (at most 8 blocks on the primary stream) stay whole, and
+    otherwise so that a full budget makes about CHUNK_TARGET chunks."""
+    return max(MIN_CHUNK, -(-n_blocks // CHUNK_TARGET))
+
+
+def plan_rows(nt: int, n_blocks: int, chunk: int) -> int:
+    """Rows of the launch plan, an upper bound on the chunk count from
+    shapes alone: nt + ceil(n_blocks / chunk)."""
+    return nt + -(-n_blocks // chunk)
+
+
+def chunk_plan_plain(tile_of, nt: int, chunk: int):
+    """Plain version of the plan kernel (csrc/sweep_shell.cuh
+    plan_kernel): each tile's run of blocks cut into run // chunk full
+    chunks and, if run % chunk > 0, a last shorter one; all chunks in
+    order of decreasing size, sizes capped at top = min(chunk,
+    PLAN_BINS - 1), stable in (tile, block) order. Returns (table
+    i32[rows, 4] = (tile, first block, blocks, slot), tile_first i32[nt],
+    tile_chunks i32[nt] = the tile's chunk count n), rows =
+    plan_rows(...); rows past the last chunk are (0, 0, 0, -1). A tile of
+    n > 1 chunks owns the scratch slots tile_first + 0..n-1 (numbered by
+    tile, its j-th chunk in block order the j-th); a tile of one chunk has
+    slot -1 and tile_first 0."""
+    dev = tile_of.device
+    n_blocks = tile_of.numel()
+    tiles = torch.arange(nt + 1, dtype=torch.int32, device=dev)
+    bound = torch.searchsorted(tile_of, tiles, out_int32=True).long()
+    bstart, run = bound[:-1], bound[1:] - bound[:-1]
+    n = torch.div(run + (chunk - 1), chunk, rounding_mode="floor")
+    split = torch.where(n > 1, n, 0)
+    slot0 = torch.cumsum(split, 0) - split
+    # Every chunk in (tile, block) order, then stably by decreasing size.
+    tile = torch.repeat_interleave(torch.arange(nt, device=dev), n)
+    j = torch.arange(tile.numel(), device=dev) - (torch.cumsum(n, 0) - n)[tile]
+    size = (run[tile] - j * chunk).clamp(max=chunk)
+    order = torch.argsort(size.clamp(max=min(chunk, PLAN_BINS - 1)),
+                          descending=True, stable=True)
+    live = torch.stack([tile, bstart[tile] + j * chunk, size,
+                        torch.where(n[tile] > 1, slot0[tile] + j, -1)], 1)
+    table = torch.tensor([0, 0, 0, -1], device=dev).repeat(
+        plan_rows(nt, n_blocks, chunk), 1)
+    table[:tile.numel()] = live[order]
+    return (table.to(torch.int32),
+            torch.where(n > 1, slot0, 0).to(torch.int32), n.to(torch.int32))
+
+
+def chunk_plan(tile_of, nt: int, chunk: int):
+    """The plan kernel alone (the first launch of every sweep) for CUDA
+    tensors, its plain version for CPU tensors: chunk_plan_plain's
+    (table, tile_first, tile_chunks). For checking and reporting the
+    plan; the sweep launches the kernel itself."""
+    if tile_of.device.type == "cpu":
+        return chunk_plan_plain(tile_of, nt, chunk)
+    if tile_of.device.type != "cuda":
+        raise RuntimeError(f"no plan kernel for device {tile_of.device}")
+    n_blocks = tile_of.numel()
+    rows = plan_rows(nt, n_blocks, chunk)
+    scratch = _plan_scratch(rows, nt, tile_of.device)
+    lib = _build.load()
+    ptr = ctypes.c_void_p
+    raise_on(lib, lib.hagrid_sweep_plan(
+        ptr(tile_of.data_ptr()), n_blocks, nt, chunk, rows,
+        ptr(scratch.data_ptr()),
+        ptr(torch.cuda.current_stream(tile_of.device).cuda_stream)),
+        "sweep plan")
+    return (scratch[:4 * rows].view(rows, 4),
+            scratch[4 * rows:4 * rows + nt],
+            scratch[4 * rows + nt + 1:])
+
+
+def _plan_scratch(rows, nt, device):
+    """The plan kernel's i32 scratch: table [rows, 4], tile_first
+    [nt + 1] (the last entry is the kernel's), tile_chunks [nt]."""
+    return torch.empty(4 * rows + 2 * nt + 1, dtype=torch.int32,
+                       device=device)
+
+
+def cuda_launch_args(xt, cols, gidx, tile_of, tminb, tile, chunk=None):
     """What a launch of the sweep's shell needs beside its inputs, after
-    checking them for the card: (nt, the four outputs before the sweep,
-    (bstart, bend) i32[nt] each tile's run of blocks); the runs are None
-    when there is nothing to launch."""
+    checking them for the card: (nt, C, plan rows, the four outputs, the
+    plan's scratch). The outputs are left unset (the launch writes every
+    ray) unless there is nothing to launch: rows is then 0 and the
+    outputs say "no hit". chunk: C (default chunk_blocks of the
+    budget)."""
     if xt.device.type != "cuda":
         raise RuntimeError(f"no sweep kernel for device {xt.device}")
     nt = _check(xt, cols, gidx, tile_of, tminb, tile)
@@ -168,16 +260,29 @@ def cuda_launch_args(xt, cols, gidx, tile_of, tminb, tile):
     if not all(x.is_contiguous() for x in tensors):
         raise ValueError("sweep inputs must be contiguous")
     if cols.data_ptr() % 16:
-        raise ValueError("cols must be 16-byte aligned (float4 loads)")
-    out = _empty_out(xt.shape[1], xt.device)
-    if nt == 0 or tile_of.numel() == 0:
-        return nt, out, None
-    # tile_of is ascending, so two searches on the device, no host read
-    # of the block count.
-    tiles = torch.arange(nt, dtype=torch.int32, device=xt.device)
-    bstart = torch.searchsorted(tile_of, tiles, out_int32=True)
-    bend = torch.searchsorted(tile_of, tiles, right=True, out_int32=True)
-    return nt, out, (bstart, bend)
+        raise ValueError("cols must be 16-byte aligned (bulk copies)")
+    n_blocks = tile_of.numel()
+    chunk = chunk or chunk_blocks(n_blocks)
+    if nt == 0 or n_blocks == 0:
+        return nt, chunk, 0, _empty_out(xt.shape[1], xt.device), None
+    rows = plan_rows(nt, n_blocks, chunk)
+    out = (torch.empty(xt.shape[1], dtype=torch.float32, device=xt.device),
+           torch.empty(xt.shape[1], dtype=torch.int32, device=xt.device),
+           torch.empty(xt.shape[1], dtype=torch.float32, device=xt.device),
+           torch.empty(xt.shape[1], dtype=torch.float32, device=xt.device))
+    return nt, chunk, rows, out, _plan_scratch(rows, nt, xt.device)
+
+
+def resident_ctas(tile, any_hit=False, device=None):
+    """(CTAs of the sweep instance for (tile, any_hit) that one SM holds at
+    once, the card's SM count): the occupancy calculator's answer."""
+    lib = _build.load()
+    per_sm = ctypes.c_int(0)
+    raise_on(lib, lib.hagrid_sweep_occupancy(int(any_hit), tile,
+                                             ctypes.byref(per_sm)),
+             "occupancy query of the sweep")
+    props = torch.cuda.get_device_properties(device or 0)
+    return per_sm.value, props.multi_processor_count
 
 
 def raise_on(lib, err: int, what: str):
@@ -198,20 +303,35 @@ def sweep_blocks(xt, cols, gidx, tile_of, tminb, tile, any_hit=False,
             raise ValueError("the plain version skips no blocks")
         return sweep_blocks_plain(xt, cols, gidx, tile_of, tminb, tile,
                                   any_hit)
-    nt, out, runs = cuda_launch_args(xt, cols, gidx, tile_of, tminb, tile)
+    return _sweep_cuda(xt, cols, gidx, tile_of, tminb, tile, any_hit,
+                       skipped)
+
+
+def _sweep_cuda(xt, cols, gidx, tile_of, tminb, tile, any_hit, skipped,
+                chunk=None):
+    """sweep_blocks on the card; chunk overrides C (for measuring it: the
+    result does not depend on it)."""
+    nt, chunk, rows, out, plan = cuda_launch_args(xt, cols, gidx, tile_of,
+                                                  tminb, tile, chunk)
     if skipped is not None and (skipped.dtype != torch.int32
                                 or skipped.shape != (nt,)
                                 or skipped.device != xt.device):
         raise ValueError(f"skipped must be i32[{nt}] on {xt.device}")
-    if runs is None:
+    if rows == 0:
         return out
+    # Scratch of the split tiles' chunks, indexed by plan row; rows of
+    # whole tiles leave theirs unwritten.
+    partial = torch.empty((rows, tile, 4), dtype=torch.int32,
+                          device=xt.device)
     lib = _build.load()
     ptr = ctypes.c_void_p
     err = lib.hagrid_sweep(
         ptr(xt.data_ptr()), xt.shape[1], ptr(cols.data_ptr()),
-        ptr(gidx.data_ptr()), *(ptr(r.data_ptr()) for r in runs),
+        ptr(gidx.data_ptr()), ptr(tile_of.data_ptr()), tile_of.numel(),
         ptr(tminb.data_ptr()), *(ptr(o.data_ptr()) for o in out), nt, tile,
-        int(any_hit), ptr(None if skipped is None else skipped.data_ptr()),
+        chunk, rows, int(any_hit),
+        ptr(None if skipped is None else skipped.data_ptr()),
+        ptr(plan.data_ptr()), ptr(partial.data_ptr()),
         ptr(torch.cuda.current_stream(xt.device).cuda_stream))
     raise_on(lib, err, "sweep")
     launches["sweep_blocks_anyhit" if any_hit else "sweep_blocks"] += 1

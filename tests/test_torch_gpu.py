@@ -20,6 +20,7 @@ from hagrid_tpu_torch.core.types import Triangles
 from hagrid_tpu_torch.exp import kernel_mt20, mxu_micro
 from hagrid_tpu_torch.grid.packet import build_packet, rays_to_x
 from hagrid_tpu_torch.ops import micro_kernels as mk
+from hagrid_tpu_torch.ops import sweep_kernel as sk
 from hagrid_tpu_torch.ops.sweep_kernel import (launches, sweep_blocks,
                                                sweep_blocks_plain)
 from hagrid_tpu_torch.ops.sweep_trace import _BIG_BITS
@@ -83,6 +84,193 @@ def test_sweep_kernel_matches_plain_on_card(cuda):
     assert int((got[1] >= 0).sum()) > 50
     for a, b in zip(got, want):
         assert torch.equal(a, b)
+
+
+def _long_stream(grid, device, tile, any_hit, seed=5, long_run=70):
+    """A tile owning `long_run` blocks (cut into several chunks) beside
+    tiles of 0-1 blocks, unused blocks at the end; random rays through
+    the scene box and random units; never-skip thresholds (any hit: the
+    any-hit threshold)."""
+    rng = np.random.default_rng(seed)
+    nt = 6
+    n = (nt + 1) * tile
+    lo, hi = grid.bbox_lo.cpu().numpy(), grid.bbox_hi.cpu().numpy()
+    org = rng.uniform(lo, hi, (n, 3)).astype(np.float32)
+    d = rng.normal(size=(n, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    tmax = np.full(n, np.inf, np.float32)
+    if any_hit:
+        tmax[rng.random(n) < 0.5] = 3.0
+    t = lambda a: torch.as_tensor(a, device=device)  # noqa: E731
+    xt = rays_to_x(t(org), t(d), t(np.zeros(n, np.float32)),
+                   t(tmax)).t().contiguous()
+    seed_t = np.where(rng.random(n) < 0.1, -3e38, 3e38).astype(np.float32)
+    seed_t[nt * tile:] = -3e38
+    xt[14] = t(seed_t)
+    tile_of = np.concatenate([np.repeat(np.arange(nt),
+                                        [1, long_run, 0, 1, 0, 1]),
+                              [nt] * 3]).astype(np.int32)
+    nb = tile_of.size
+    gidx = rng.integers(0, grid.cols.shape[0] // 4, nb * 32)
+    tminb = np.full(nb, _BIG_BITS - 1 if any_hit else 0, np.int32)
+    return (xt, grid.cols, t(gidx.astype(np.int32)), t(tile_of),
+            t(tminb), tile)
+
+
+def _cornell_grid(device):
+    v, f = scenes.cornell_box()
+    return build_packet(Triangles.from_mesh(v, f, device=device),
+                        dims=(6, 6, 6))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("chunk", [None, 7])
+@pytest.mark.parametrize("any_hit", [False, True])
+@pytest.mark.parametrize("tile", [256, 512])
+def test_sweep_kernel_long_run_on_card(cuda, tile, any_hit, chunk):
+    """One tile of 70 blocks, split over several CTAs, beside tiles of 0-1
+    blocks: closest hit equals the plain version bit for bit; any hit
+    keeps its rule (hit/miss equal, hits inside (tmin, tmax), none closer
+    than the plain version's); no block skipped."""
+    args = _long_stream(_cornell_grid(cuda), cuda, tile, any_hit)
+    xt, tile_of, nt = args[0], args[3], args[0].shape[1] // tile - 1
+    assert 70 > (chunk or sk.chunk_blocks(tile_of.numel()))
+    skipped = torch.zeros(nt, dtype=torch.int32, device=cuda)
+    key = "sweep_blocks_anyhit" if any_hit else "sweep_blocks"
+    before = launches[key]
+    got = sk._sweep_cuda(*args, any_hit, skipped, chunk)
+    torch.cuda.synchronize()
+    assert launches[key] == before + 1
+    want = sweep_blocks_plain(*args, any_hit=any_hit)
+    assert int((want[1] >= 0).sum()) > 50
+    assert int(skipped.sum()) == 0
+    if not any_hit:
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+        return
+    hit, want_hit = got[1] >= 0, want[1] >= 0
+    assert torch.equal(hit, want_hit)
+    assert (got[0][hit] < xt[13][hit]).all()
+    assert (got[0][hit] > xt[12][hit]).all()
+    assert (got[0][hit] >= want[0][hit]).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("seed,nt,max_run,chunk,unused", [
+    (0, 40, 90, 16, 3), (1, 4099, 238, 24, 5000), (2, 2048, 8, 16, 3000),
+    (3, 1500, 350, 7, 0), (4, 300, 200, 200, 10)])
+def test_plan_kernel_matches_plain_on_card(cuda, seed, nt, max_run, chunk,
+                                           unused):
+    """The plan kernel (one CTA, several rounds of 1024 tiles beyond 1024
+    tiles) equals its plain version: table, first rows and chunk
+    counts."""
+    rng = np.random.default_rng(seed)
+    run = rng.integers(0, 4, nt)
+    run[rng.random(nt) < 0.4] = 0
+    long = rng.choice(nt, max(1, nt // 8), replace=False)
+    run[long] = rng.integers(1, max_run + 1, long.size)
+    tile_of = torch.as_tensor(np.concatenate([
+        np.repeat(np.arange(nt), run), np.full(unused, nt)]).astype(np.int32),
+        device=cuda)
+    got = sk.chunk_plan(tile_of, nt, chunk)
+    want = sk.chunk_plan_plain(tile_of, nt, chunk)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+def _tie_stream(grid, tris, device, tile, ids_in_order):
+    """Ray 0 of tile 0 aims at a triangle's centroid; two copies of the
+    triangle's coefficient row, with ids ids_in_order[0] and [1], sit in
+    blocks 0 and 40 of tile 0's run of 48 blocks (different chunks at
+    C = 16); every other slot holds the dead unit, other rays are dead."""
+    rows = grid.cols[:, :120].reshape(-1, 20)
+    row = rows[rows[:, :16].abs().sum(1) > 0][0].clone()
+    tri = int(row[16])
+    target = tris.v0[tri] + (tris.e1[tri] + tris.e2[tri]) / 3.0
+    n = 2 * tile
+    org = torch.zeros((n, 3), device=device)
+    org[0] = target + tris.n[tri] * 2.0 + 0.01
+    d = torch.zeros((n, 3), device=device)
+    d[:, 2] = 1.0
+    d[0] = target - org[0]
+    d[0] = d[0] / d[0].norm()
+    x = rays_to_x(org, d, torch.zeros(n, device=device),
+                  torch.full((n,), float("inf"), device=device))
+    xt = x.t().contiguous()
+    xt[14] = -3e38
+    xt[14, 0] = 3e38
+    cols = torch.zeros((3 * 4, 128), device=device)   # units 0 (dead), 1, 2
+    for u, ident in zip((1, 2), ids_in_order):
+        r = row.clone()
+        r[16] = float(ident)
+        cols[4 * u, :20] = r
+    nb = 48
+    gidx = torch.zeros(nb * 32, dtype=torch.int32, device=device)
+    gidx[0 * 32 + 5] = 1
+    gidx[40 * 32 + 17] = 2
+    tile_of = torch.zeros(nb, dtype=torch.int32, device=device)
+    tminb = torch.zeros(nb, dtype=torch.int32, device=device)
+    return xt, cols, gidx, tile_of, tminb, tile
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ids", [(7, 3), (3, 7)])
+def test_sweep_kernel_tie_across_chunks_on_card(cuda, ids):
+    """Two tris at exactly the same t for one ray, in different chunks of
+    one tile: the smaller id wins, as in the plain version, whichever
+    chunk holds it."""
+    v, f = scenes.cornell_box()
+    tris = Triangles.from_mesh(v, f, device=cuda)
+    args = _tie_stream(build_packet(tris, dims=(6, 6, 6)), tris, cuda, 256,
+                       ids)
+    assert sk.chunk_blocks(args[3].numel()) < 40
+    got = sweep_blocks(*args)
+    torch.cuda.synchronize()
+    want = sweep_blocks_plain(*args)
+    assert int(want[1][0]) == 3
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("any_hit", [False, True])
+def test_sweep_kernel_all_skipped_on_card(cuda, any_hit):
+    """Every block skipped (closest hit: thresholds above every bit
+    pattern; any hit: every ray dead): no hits, and each tile's skip count
+    is its whole run, split tile included."""
+    args = list(_long_stream(_cornell_grid(cuda), cuda, 256, any_hit))
+    xt, tile_of = args[0].clone(), args[3]
+    nt = xt.shape[1] // 256 - 1
+    if any_hit:
+        xt[14] = -3e38
+    else:
+        args[4] = torch.full_like(args[4], 2**31 - 2)
+    args[0] = xt
+    skipped = torch.zeros(nt, dtype=torch.int32, device=cuda)
+    got = sweep_blocks(*args, any_hit=any_hit, skipped=skipped)
+    torch.cuda.synchronize()
+    assert not bool((got[1] >= 0).any())
+    assert bool((got[0] == 3e38).all())
+    per_tile = torch.bincount(tile_of.long(), minlength=nt + 1)[:nt]
+    assert torch.equal(skipped, per_tile.to(torch.int32))
+
+
+@pytest.mark.gpu
+def test_sweep_kernel_skip_counts_per_tile_on_card(cuda):
+    """Closest hit on the long-run stream with random thresholds: each
+    tile's skip count, added by several CTAs for the split tile, lies
+    within its run."""
+    args = list(_long_stream(_cornell_grid(cuda), cuda, 512, False))
+    rng = np.random.default_rng(9)
+    nb = args[3].numel()
+    thr = rng.uniform(0, 2, nb).astype(np.float32).view(np.int32)
+    args[4] = torch.as_tensor(thr, device=cuda)
+    nt = args[0].shape[1] // 512 - 1
+    skipped = torch.zeros(nt, dtype=torch.int32, device=cuda)
+    sweep_blocks(*args, skipped=skipped)
+    torch.cuda.synchronize()
+    per_tile = torch.bincount(args[3].long(), minlength=nt + 1)[:nt]
+    assert (skipped >= 0).all() and (skipped <= per_tile).all()
 
 
 @pytest.mark.gpu
