@@ -49,7 +49,10 @@ Phases, one line each (any failure exits non-zero before the result):
    graph replays, as path A times it); K5-K7, of which
    only the last block's sums come back, also have every block's column
    sums compared and are timed at B and B/2 blocks (the ratio shows the
-   time covers every block); then the
+   time covers every block); K6/K7 also as one library product
+   (`dots_bf16_library`, checked against the plain version and timed:
+   library_ms, with its own byte bound); their SASS must show HGMMA and
+   no local memory (hagrid_tpu_torch.exp.sass, [sass]); then the
    two records through the entry points a user calls
    (hagrid_tpu_torch.exp.kernel_mt20.run and .mxu_micro.run) with the
    launch counts from zero.
@@ -71,7 +74,7 @@ import torch
 from hagrid_tpu_torch import oracle, scenes
 from hagrid_tpu_torch.core.camera import block_index, primary_rays
 from hagrid_tpu_torch.core.types import Triangles
-from hagrid_tpu_torch.exp import kernel_mt20, mxu_micro
+from hagrid_tpu_torch.exp import kernel_mt20, mxu_micro, sass
 from hagrid_tpu_torch.grid.packet import build_packet, rays_to_x
 from hagrid_tpu_torch.io.image import dhash, hamming, shade_eyelight
 from hagrid_tpu_torch.ops import _build, sortrays
@@ -111,9 +114,10 @@ REPLACES_ANYHIT = ("hagrid_tpu/ops/sweep_trace.py:132-133,179-180 (K3, the "
 OPS_PER_PAIR = {False: 44, True: 44}
 REFS_PER_BLOCK = 768
 # One H100 SXM (NVIDIA's data sheet, at 700 W): FP32 outside the tensor
-# cores, and HBM3. The peak counts an FMA as 2 operations; the kernel is
-# built with -fmad=false, so each of its operations is one instruction,
-# issued at half that rate (the second bound printed).
+# cores, and HBM3. The peak counts an FMA as 2 operations; the kernels are
+# built with -fmad=false, so each operation of a function that rounds
+# every operation (the sweep, K5) is one instruction, issued at half that
+# rate: FP32_ISSUE.
 FP32_PEAK = 67e12
 FP32_ISSUE = FP32_PEAK / 2
 BF16_PEAK = 989e12             # dense bf16 on the tensor cores
@@ -846,7 +850,8 @@ def micro_phase(card, dev):
         "dots_fp32 (K5)", lambda: mk.dots_fp32(xt, g),
         lambda: mk.dots_fp32(xt, g[:hb * mk.BLOCK_ROWS]),
         lambda: mk.dots_fp32_plain(xt, g), card)
-    b = micro_bound("dots_fp32 (K5)", pairs * DOTS_OPS_PER_PAIR, FP32_PEAK,
+    # Its function rounds every multiply and add: one instruction each.
+    b = micro_bound("dots_fp32 (K5)", pairs * DOTS_OPS_PER_PAIR, FP32_ISSUE,
                     nbytes(xt, g, *got))
     entries["dots_fp32"] = dict(
         name="dots_fp32", replaces="exp/r4_mxu_micro.py:68 (K5, vpu_kernel)",
@@ -867,6 +872,8 @@ def micro_phase(card, dev):
         "dots_fp32_fma", lambda: mk.dots_fp32(xt, g, fma=True),
         lambda: mk.dots_fp32(xt, g[:hb * mk.BLOCK_ROWS], fma=True), None,
         card)
+    b = micro_bound("dots_fp32_fma", pairs * DOTS_OPS_PER_PAIR, FP32_PEAK,
+                    nbytes(xt, g, *got))
     entries["dots_fp32_fma"] = dict(
         name="dots_fp32_fma", replaces="exp/r4_mxu_micro.py:68 (K5, "
         "vpu_kernel; the instance with explicit FMAs)", max_abs_err=errs[0],
@@ -876,37 +883,70 @@ def micro_phase(card, dev):
     exact = (c[-mk.BLOCK_C_ROWS:].double().reshape(-1, mk.BLOCK_ROWS,
                                                    mk.DOT_DEPTH).sum(0)
              @ phi.double())
+    # K6/K7 (two instances) must run on the tensor cores' warpgroup
+    # products and keep their accumulators in registers.
+    census = {name: counts for name, counts in sass.run().items()
+              if "dots_bf16_kernel" in name}
+    check(len(census) == 2, f"SASS: {len(census)} dots_bf16_kernel "
+          f"instances, expected 2 (K6, K7): {sorted(census)}")
+    for name, counts in census.items():
+        print(f"[sass] {name}: " + ", ".join(
+            f"{k} {v}" for k, v in counts.items()), flush=True)
+        check(counts.get("HGMMA", 0) > 0, f"{name}: no HGMMA")
+        check(not (counts.get("LDL") or counts.get("STL")),
+              f"{name}: local memory (LDL/STL)")
     for split, key, rep in (
             (False, "dots_bf16", "exp/r4_mxu_micro.py:89 (K6, mxu1_kernel)"),
             (True, "dots_bf16x3",
              "exp/r4_mxu_micro.py:101 (K7, mxu3_kernel)")):
-        got = mk.dots_bf16(phi, c, split=split)
         want = mk.dots_bf16_plain(phi, c, split=split)
-        torch.cuda.synchronize()
-        errs = [float((a - w).abs().max()) for a, w in zip(got, want)]
         tols = [BF16_TOL * float(w.abs().max()) for w in want]
-        rel64 = float((got[0].double() - exact).abs().max()
-                      / exact.abs().max())
-        print(f"[micro] {key}, {n_blocks} blocks x {TILE} rays: last "
-              f"block's sums max |err| {errs[0]:.3e} (tolerance "
-              f"{tols[0]:.3e}), column sums of all blocks max |err| "
-              f"{errs[1]:.3e} (tolerance {tols[1]:.3e}); the kernel's last "
-              f"block against the f64 product: relative error "
-              f"{rel64:.3e}", flush=True)
-        check(errs[0] <= tols[0] and errs[1] <= tols[1],
-              f"{key} differs from its plain version beyond {BF16_TOL} x "
-              f"max|ref|")
-        check(rel64 < (1e-4 if split else 2e-2),
-              f"{key}: relative error {rel64} against f64")
+        library = mk.dots_bf16_library(phi, c, split=split)
+        runs = {"kernel": lambda: mk.dots_bf16(phi, c, split=split),
+                "library": lambda: (lambda r: (r[-1], r.sum(1)))(library())}
+        for what, fn in runs.items():
+            got = fn()
+            torch.cuda.synchronize()
+            errs = [float((a - w).abs().max()) for a, w in zip(got, want)]
+            rel64 = float((got[0].double() - exact).abs().max()
+                          / exact.abs().max())
+            print(f"[micro] {key} ({what}), {n_blocks} blocks x {TILE} "
+                  f"rays: last block's sums max |err| {errs[0]:.3e} "
+                  f"(tolerance {tols[0]:.3e}), column sums of all blocks "
+                  f"max |err| {errs[1]:.3e} (tolerance {tols[1]:.3e}); "
+                  f"the last block against the f64 product: relative "
+                  f"error {rel64:.3e}", flush=True)
+            check(errs[0] <= tols[0] and errs[1] <= tols[1],
+                  f"{key} ({what}) differs from its plain version beyond "
+                  f"{BF16_TOL} x max|ref|")
+            if what == "kernel":
+                err, rel_kernel = errs[0], rel64
+            del got
+        check(rel_kernel < (1e-4 if split else 2e-2),
+              f"{key}: relative error {rel_kernel} against f64")
         ms, plain_ms = timed_pair(
-            key, lambda: mk.dots_bf16(phi, c, split=split),
+            key, runs["kernel"],
             lambda: mk.dots_bf16(phi, c[:hb * mk.BLOCK_C_ROWS], split=split),
             lambda: mk.dots_bf16_plain(phi, c, split=split), card)
-        b = micro_bound(key, flops * (3 if split else 1), BF16_PEAK,
-                        nbytes(phi, c, *got))
-        entries[key] = dict(name=key, replaces=rep, max_abs_err=errs[0],
-                            ms=ms, plain_ms=plain_ms, rel_err_f64=rel64, **b)
-    del xt, g, phi, c, got, want
+        library_ms = cuda_ms(library, iters=20, warmup=2)
+        print(f"[micro] {key}: library product {library_ms:.4f} ms (one "
+              f"torch.mm, bf16 operands, f32 output) ({card})", flush=True)
+        ops = flops * (3 if split else 1)
+        b = micro_bound(key, ops, BF16_PEAK, nbytes(phi, c, *want))
+        # The library call reads its bf16 layout and writes every block's
+        # (128, T) sums: its own least time, beside library_ms.
+        depth = mk.BLOCK_C_ROWS // mk.BLOCK_ROWS * mk.DOT_DEPTH * (
+            3 if split else 1)
+        lib_bytes = 2 * depth * (n_blocks * mk.BLOCK_ROWS + TILE) \
+            + 4 * n_blocks * mk.BLOCK_ROWS * TILE
+        lib_bound = micro_bound(f"{key} (library product)", ops, BF16_PEAK,
+                                lib_bytes)["bound_ms"]
+        entries[key] = dict(name=key, replaces=rep, max_abs_err=err,
+                            ms=ms, plain_ms=plain_ms, rel_err_f64=rel_kernel,
+                            library_ms=library_ms,
+                            library_bound_ms=lib_bound, **b)
+        del library
+    del xt, g, phi, c, want
 
     # Path A through its entry points, every count from zero.
     reset_launches()
@@ -931,9 +971,9 @@ def micro_phase(card, dev):
     check(rec_a["skipped_ms"] < rec_a["det3_ms"] < rec_a["full_ms"],
           "the decomposition is not ordered skipped < det3 < full")
     for key, e in entries.items():
-        # No single PyTorch call computes a kernel's fused row-group sums.
-        e.update(route="cuda", source=MICRO_SOURCE, launches=counts[key],
-                 library_ms=None)
+        # Only K6/K7's function is one library call (a matrix product).
+        e.setdefault("library_ms", None)
+        e.update(route="cuda", source=MICRO_SOURCE, launches=counts[key])
     return list(entries.values())
 
 
@@ -957,7 +997,7 @@ def main(profile_path=False, with_variants=False) -> int:
     _build.load()
     ptxas = [ln.strip() for ln in _build.last_build["log"].splitlines()
              if "registers" in ln or "spill" in ln
-             or "entry function" in ln]
+             or "entry function" in ln or "wgmma" in ln]
     print(f"[build] {_build.last_build['path']} in "
           f"{time.perf_counter() - t0:.1f} s (nvcc "
           f"{_build.last_build['seconds']:.1f} s); ptxas: "

@@ -31,18 +31,30 @@
 //   exp/r4_mxu_micro.py::mxu1_kernel and ::mxu3_kernel. Per stream block,
 //   C_blk (3072 x 16) . phi (16 x 512) with both operands cast to bf16
 //   inside the kernel and f32 accumulation, the 24 groups of 128 rows
-//   summed: out = sum_q C_q . phi. K = 16 is one bf16 mma.sync step
-//   (m16n8k16), and the group sum is 24 such steps chained into one
-//   accumulator fragment. K7 splits both operands into hi = bf16(x) and
-//   lo = bf16(x - f32(hi)) and sums hi.hi + hi.lo + lo.hi. Bound: K6 by
-//   the bytes of C (403 MB at 2048 blocks against 103 GFLOP at the bf16
-//   tensor-core rate), K7 by its 3 x operations. A CUDA block of 8 warps
-//   takes one stream block and one quarter of the rays (128 x 128
-//   outputs, 64 accumulator registers a thread, phi's fragments held in
-//   registers for the whole block); the 4 quarters of a stream block are
-//   neighbours in the grid, so C comes from device memory once and from
-//   L2 three times. Operand fragments are loaded from global memory as
-//   float2 and converted in registers: no shared-memory staging.
+//   summed: out = sum_q C_q . phi. K7 splits both operands into
+//   hi = bf16(x) and lo = bf16(x - f32(hi)) and sums hi.hi + hi.lo + lo.hi.
+//   Bound: K6 by the bytes of C (403 MB at 2048 blocks against 103 GFLOP
+//   at the bf16 tensor-core rate), K7 by its 3 x operations.
+//   Design (Hopper): a persistent grid of CTA pairs, one CTA per SM,
+//   each pair walking the stream blocks with a stride of the number of
+//   pairs. CTA r of a pair owns rays 256r..256r+255: its (128 x 256) f32
+//   sums are one wgmma m64n256k16 accumulator (128 registers a thread) in
+//   each of two consumer warpgroups, rows 0-63 and 64-127 of every row
+//   group. phi's bf16 hi (and lo) tile for the CTA's rays is written once
+//   into shared memory in the K-major no-swizzle layout that wgmma reads
+//   through its descriptor. A producer warp streams C through a ring of
+//   12 mbarrier-guarded 8 KB stages (one row group each) with 1-D bulk
+//   copies; both CTAs of a pair read the same block at about the same
+//   time, the second read mostly from L2. Each
+//   consumer thread reads its A fragment of f32 from the stage (two
+//   16-byte loads: k is permuted the same way in A and B so that a
+//   thread's four k pairs are neighbours), converts it in registers
+//   once, frees the stage, and issues wgmma with A from registers (K6 24
+//   products a block, two groups in flight; K7 72, one group of three at
+//   a time). Per block, the epilogue folds each warp's 16 rows by
+//   shuffles, adds the 8 warps' column sums through shared memory and
+//   writes csum[b] (and, for the last block, out) while the producer
+//   already loads the next block.
 //
 // All of K5-K7 write the (128, 512) sums of the LAST stream block only
 // (the TPU kernels' sequential grid rewrites one output block), and every
@@ -175,9 +187,34 @@ __global__ void __launch_bounds__(kDotThreads) dots_fp32_kernel(
 constexpr int kK = 16;              // depth of the product
 constexpr int kBlockCRows = 3072;   // rows of C per stream block
 constexpr int kGroups = kBlockCRows / kBlockRows;  // 24 row groups
-constexpr int kQuarterRays = 128;   // rays per CUDA block
-constexpr int kNTiles = kQuarterRays / 8;  // n8 tiles per warp: 16
-constexpr int kWarps = kDotThreads / 32;   // 8 warps x 16 rows = 128 rows
+constexpr int kHalfRays = kTile / 2;        // rays per CTA of a pair: N
+constexpr int kNTiles = kHalfRays / 8;      // n8 tiles of an accumulator
+constexpr int kAcc = 4 * kNTiles;           // accumulator registers: 128
+constexpr int kConsumers = 256;             // two warpgroups
+constexpr int kBf16Threads = kConsumers + 32;  // and the producer warp
+constexpr int kStageBytes = kBlockRows * kK * 4;  // one row group: 8 KB
+constexpr int kStages = 12;        // of the ring: half a block
+constexpr int kPhiBytes = kK * kHalfRays * 2;   // one bf16 B tile: 8 KB
+constexpr int kColsumBytes = 8 * kHalfRays * 4;  // 8 warps' column sums
+// Dynamic shared memory: the ring, B hi and lo, two column-sum buffers,
+// the full and empty barriers.
+constexpr int kPhiOff = kStages * kStageBytes;
+constexpr int kColsumOff = kPhiOff + 2 * kPhiBytes;
+constexpr int kBarOff = kColsumOff + 2 * kColsumBytes;
+constexpr int kBf16Smem = kBarOff + 2 * kStages * 8;
+constexpr int kPairs = 2;           // CTAs a stream block is split over
+// A barrier wait that outlasts this traps, so a fault in the pipeline
+// ends the launch with an error instead of hanging the card.
+constexpr unsigned long long kWaitLimitNs = 4000000000ull;
+// The ring's stages divide a block's groups, so group q of every block
+// takes slot q % kStages; only the phase parity depends on the block.
+static_assert(kGroups % kStages == 0, "a block fills whole rounds");
+
+// Phase parity of group q of the CTA's k-th block (constant per q when a
+// block is an even number of rounds of the ring).
+__device__ __forceinline__ uint32_t ring_parity(int k, int q) {
+  return (k * (kGroups / kStages) + q / kStages) & 1;
+}
 
 __device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat16 lo,
                                               __nv_bfloat16 hi) {
@@ -200,114 +237,330 @@ __device__ __forceinline__ void to_bf16(float x0, float x1, uint32_t& hi,
     lo = 0u;
 }
 
-// D (16x8, f32) += A (16x16, bf16, row-major) . B (16x8, bf16, col-major).
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
+// The column of a stage row (of C) and the row of phi that hold logical
+// depth k. wgmma's A fragment gives a thread depths 2t, 2t+1, 2t+8, 2t+9
+// (t = lane % 4); read as one float4 at column 4t, they are the four
+// neighbouring columns 4t..4t+3. B holds phi's rows in the same order, so
+// every product C[., p] . phi[p, .] is made once, as before.
+__host__ __device__ constexpr int phys_k(int k) {
+  return 4 * ((k & 7) >> 1) + 2 * (k >> 3) + (k & 1);
+}
+
+__device__ __forceinline__ void mbar_init_count(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ bool mbar_try(uint32_t bar, uint32_t parity) {
+  uint32_t ok;
   asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+      "{\n\t.reg .pred p;\n\t"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(ok)
+      : "r"(bar), "r"(parity)
+      : "memory");
+  return ok != 0;
+}
+
+__device__ __forceinline__ unsigned long long global_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(t));
+  return t;
+}
+
+// Wait for the phase of parity `parity` of the barrier at `bar`.
+__device__ __forceinline__ void mbar_wait_bounded(uint32_t bar,
+                                                  uint32_t parity) {
+  if (mbar_try(bar, parity)) return;
+  const unsigned long long t0 = global_ns();
+  while (!mbar_try(bar, parity))
+    if (global_ns() - t0 > kWaitLimitNs) __trap();
+}
+
+// wgmma's shared-memory descriptor of a K-major B tile without swizzle:
+// 8 x 16-byte core matrices (8 rays x 8 depths), the two depth halves
+// 128 bytes apart (leading byte offset), the next 8 rays 256 bytes on
+// (stride byte offset).
+__device__ __forceinline__ uint64_t b_desc(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(128 >> 4) << 16)
+       | ((uint64_t)(256 >> 4) << 32);
+}
+
+// Byte offset of (depth k, ray n) in such a tile.
+__device__ __forceinline__ int b_offset(int k, int n) {
+  return (n >> 3) * 256 + (n & 7) * 16 + (k >> 3) * 128 + (k & 7) * 2;
+}
+
+#define HG_D4(i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3])
+#define HG_D16(i) HG_D4(i), HG_D4(i + 4), HG_D4(i + 8), HG_D4(i + 12)
+#define HG_D64(i) HG_D16(i), HG_D16(i + 16), HG_D16(i + 32), HG_D16(i + 48)
+
+// D (64 x 256, f32) (+)= A (64 x 16, bf16, registers) . B (16 x 256,
+// bf16, shared memory, K-major); scale_d = 0 overwrites D.
+__device__ __forceinline__ void wgmma_bf16(float (&d)[kAcc],
+                                           const uint32_t (&a)[4],
+                                           uint64_t desc, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, "
+      "%67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, "
+      "%93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, "
+      "%105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, "
+      "%116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, "
+      "%127}, {%128, %129, %130, %131}, %132, p, 1, 1, 0;\n}\n"
+      : HG_D64(0), HG_D64(64)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc),
+        "r"(scale_d));
+}
+
+#undef HG_D64
+#undef HG_D16
+#undef HG_D4
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int kN>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(kN) : "memory");
+}
+
+// Ties the accumulator's registers to this point, so that no read of them
+// moves above a wgmma wait.
+__device__ __forceinline__ void fence_acc(float (&d)[kAcc]) {
+#pragma unroll
+  for (int i = 0; i < kAcc; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// One step of a reduce-scatter across the lanes `m` apart: the lane with
+// `upper` keeps the upper half of v[0..kLen), its partner the lower half,
+// each adding what the other sends.
+template <int kLen>
+__device__ __forceinline__ void fold(float* v, bool upper, int m) {
+#pragma unroll
+  for (int i = 0; i < kLen / 2; ++i) {
+    const float send = upper ? v[i] : v[i + kLen / 2];
+    const float keep = upper ? v[i + kLen / 2] : v[i];
+    v[i] = keep + __shfl_xor_sync(0xffffffffu, send, m);
+  }
 }
 
 template <bool kSplit>
-__global__ void __launch_bounds__(kDotThreads) dots_bf16_kernel(
+__global__ void __launch_bounds__(kBf16Threads, 1) dots_bf16_kernel(
     const float* __restrict__ phi, const float* __restrict__ c,
     float* __restrict__ out, float* __restrict__ csum, int n_blocks) {
-  __shared__ float colsum[kWarps][kQuarterRays];
-  const int b = blockIdx.x >> 2;
-  const int n0 = (blockIdx.x & 3) * kQuarterRays;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int gid = lane >> 2;   // fragment row (A, D) / column (B)
-  const int tig = lane & 3;    // thread in group
+  extern __shared__ __align__(1024) uint8_t sm[];
+  const uint32_t base = smem(sm);
+  const uint32_t full = base + kBarOff;             // kStages barriers
+  const uint32_t empty = full + kStages * 8;        // kStages barriers
+  const int tid = threadIdx.x;
+  const int rank = blockIdx.x % kPairs;   // CTAs 2i and 2i + 1: pair i
+  const int pair = blockIdx.x / kPairs;
+  const int n_pairs = gridDim.x / kPairs;
+  const int n0 = rank * kHalfRays;
 
-  // phi's fragments for this CUDA block's 128 rays, held for all 24 groups:
-  // register h of tile j holds phi[tig*2 + 8h + {0,1}][n0 + 8j + gid].
-  uint32_t bh[kNTiles][2], bl[kNTiles][2];
+  if (tid == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init_count(full + 8 * s, 1);
+      mbar_init_count(empty + 8 * s, 8);  // every consumer warp frees it
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  // B tiles: thread n converts phi's 16 rows for ray n0 + n.
+  if (tid < kHalfRays) {
+    uint32_t hw[8], lw[8];
 #pragma unroll
-  for (int j = 0; j < kNTiles; ++j) {
+    for (int j = 0; j < 8; ++j)
+      to_bf16<kSplit>(phi[phys_k(2 * j) * kTile + n0 + tid],
+                      phi[phys_k(2 * j + 1) * kTile + n0 + tid], hw[j],
+                      lw[j]);
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      const int k = tig * 2 + h * 8;
-      const int n = n0 + j * 8 + gid;
-      to_bf16<kSplit>(phi[k * kTile + n], phi[(k + 1) * kTile + n],
-                      bh[j][h], bl[j][h]);
+      uint8_t* dst = sm + kPhiOff + b_offset(8 * h, tid);
+      *reinterpret_cast<uint4*>(dst) =
+          make_uint4(hw[4 * h], hw[4 * h + 1], hw[4 * h + 2], hw[4 * h + 3]);
+      if (kSplit)
+        *reinterpret_cast<uint4*>(dst + kPhiBytes) = make_uint4(
+            lw[4 * h], lw[4 * h + 1], lw[4 * h + 2], lw[4 * h + 3]);
     }
+    // The tiles are read by wgmma, through the async proxy.
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
   }
+  // The barriers exist and the B tiles are written.
+  __syncthreads();
 
-  float acc[kNTiles][4];
+  if (tid >= kConsumers) {
+    // Producer: one thread streams the pair's blocks, group by group.
+    if (tid == kConsumers) {
+      for (int b = pair, k = 0; b < n_blocks; b += n_pairs, ++k) {
+        const char* src = reinterpret_cast<const char*>(
+            c + (size_t)b * kBlockCRows * kK);
 #pragma unroll
-  for (int j = 0; j < kNTiles; ++j)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) acc[j][i] = 0.0f;
-
-  // This warp's 16 rows of every group: rows gid and gid + 8, columns
-  // tig*2 + {0,1} and tig*2 + 8 + {0,1}, as float2 loads.
-  const float* cw = c + ((size_t)b * kBlockCRows + warp * 16) * kK;
-  for (int q = 0; q < kGroups; ++q) {
-    const float* a = cw + (size_t)q * kBlockRows * kK;
-    const float2 x0 = *reinterpret_cast<const float2*>(
-        a + gid * kK + tig * 2);
-    const float2 x1 = *reinterpret_cast<const float2*>(
-        a + (gid + 8) * kK + tig * 2);
-    const float2 x2 = *reinterpret_cast<const float2*>(
-        a + gid * kK + tig * 2 + 8);
-    const float2 x3 = *reinterpret_cast<const float2*>(
-        a + (gid + 8) * kK + tig * 2 + 8);
-    uint32_t ah[4], al[4];
-    to_bf16<kSplit>(x0.x, x0.y, ah[0], al[0]);
-    to_bf16<kSplit>(x1.x, x1.y, ah[1], al[1]);
-    to_bf16<kSplit>(x2.x, x2.y, ah[2], al[2]);
-    to_bf16<kSplit>(x3.x, x3.y, ah[3], al[3]);
-#pragma unroll
-    for (int j = 0; j < kNTiles; ++j) {
-      mma_bf16(acc[j], ah, bh[j]);
-      if (kSplit) {
-        mma_bf16(acc[j], ah, bl[j]);
-        mma_bf16(acc[j], al, bh[j]);
+        for (int q = 0; q < kGroups; ++q) {
+          const int s = q % kStages;
+          mbar_wait_bounded(empty + 8 * s, ring_parity(k, q) ^ 1);
+          asm volatile(
+              "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                  "r"(full + 8 * s),
+              "r"(kStageBytes)
+              : "memory");
+          asm volatile(
+              "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx"
+              "::bytes [%0], [%1], %2, [%3];\n" ::"r"(base + s * kStageBytes),
+              "l"(src + q * kStageBytes), "r"(kStageBytes), "r"(full + 8 * s)
+              : "memory");
+        }
       }
     }
-  }
+    __syncwarp();
+  } else {
+    // Consumers: warpgroup wg takes rows 64 wg.. of every row group; the
+    // thread's A fragment is rows gid and gid + 8 of its warp's 16, depths
+    // as phys_k places them.
+    const int wg = tid >> 7;
+    const int warp = tid >> 5;
+    const int lane = tid & 31;
+    const int gid = lane >> 2;
+    const int tig = lane & 3;
+    const int row0 = 64 * wg + 16 * (warp & 3) + gid;
+    const uint8_t* a_src = sm + (row0 * kK + 4 * tig) * 4;
+    const uint64_t desc_hi = b_desc(base + kPhiOff);
+    const uint64_t desc_lo = b_desc(base + kPhiOff + kPhiBytes);
+    float acc[kAcc];
+#pragma unroll
+    for (int i = 0; i < kAcc; ++i) acc[i] = 0.0f;  // (each block's first
+                                                    // product overwrites)
+    // Group q of the CTA's k-th block: wait for its stage, convert this
+    // thread's A fragment into (h, l), free the stage, issue the group's
+    // products.
+    auto group = [&](int k, int q, uint32_t(&h)[4], uint32_t(&l)[4]) {
+      const int s = q % kStages;
+      mbar_wait_bounded(full + 8 * s, ring_parity(k, q));
+      const float4 x0 =
+          *reinterpret_cast<const float4*>(a_src + s * kStageBytes);
+      const float4 x1 = *reinterpret_cast<const float4*>(
+          a_src + s * kStageBytes + 8 * kK * 4);
+      // a0: row gid, depths 2t, 2t+1; a1: row gid+8; a2: row gid, depths
+      // 2t+8, 2t+9; a3: row gid+8.
+      to_bf16<kSplit>(x0.x, x0.y, h[0], l[0]);
+      to_bf16<kSplit>(x1.x, x1.y, h[1], l[1]);
+      to_bf16<kSplit>(x0.z, x0.w, h[2], l[2]);
+      to_bf16<kSplit>(x1.z, x1.w, h[3], l[3]);
+      // Free the stage: one arrive for the warp.
+      __syncwarp();
+      if (lane == 0)
+        asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                         empty + 8 * s)
+                     : "memory");
+      wgmma_fence();
+      wgmma_bf16(acc, h, desc_hi, q > 0);
+      if (kSplit) {
+        wgmma_bf16(acc, h, desc_lo, 1);
+        wgmma_bf16(acc, l, desc_hi, 1);
+      }
+      wgmma_commit();
+      // K6: the group before this one is done, so its A registers are
+      // free. K7 waits for its own group: with a second group's A (hi and
+      // lo) in flight its registers do not fit and ptxas serialises every
+      // product, 16-19% slower on an H100 (PERF.md).
+      wgmma_wait<kSplit ? 0 : 1>();
+    };
+    // Two A fragments alternate: one being read by the group in flight,
+    // one being filled (K6).
+    uint32_t ah0[4], al0[4], ah1[4], al1[4];
+    int k = 0;  // blocks this CTA has done
+    for (int b = pair; b < n_blocks; b += n_pairs, ++k) {
+#pragma unroll
+      for (int q = 0; q < kGroups; q += 2) {
+        group(k, q, ah0, al0);
+        group(k, q + 1, ah1, al1);
+      }
+      wgmma_wait<0>();
+      fence_acc(acc);
 
-  // D fragment: acc[j][0..1] = row gid, rays n0 + 8j + tig*2 + {0,1};
-  // acc[j][2..3] = row gid + 8, the same rays.
-  if (b == n_blocks - 1) {
+      // acc[4j + e]: row gid, ray 8j + 2 tig + e; acc[4j + 2 + e]: row
+      // gid + 8, the same ray.
+      if (b == n_blocks - 1) {
+        float* o = out + (size_t)row0 * kTile + n0 + 2 * tig;
 #pragma unroll
-    for (int j = 0; j < kNTiles; ++j) {
-      const int n = n0 + j * 8 + tig * 2;
-      float* r0 = out + (warp * 16 + gid) * kTile + n;
-      float* r1 = out + (warp * 16 + gid + 8) * kTile + n;
-      r0[0] = acc[j][0];
-      r0[1] = acc[j][1];
-      r1[0] = acc[j][2];
-      r1[1] = acc[j][3];
+        for (int j = 0; j < kNTiles; ++j) {
+          *reinterpret_cast<float2*>(o + 8 * j) =
+              make_float2(acc[4 * j], acc[4 * j + 1]);
+          *reinterpret_cast<float2*>(o + 8 * kTile + 8 * j) =
+              make_float2(acc[4 * j + 2], acc[4 * j + 3]);
+        }
+      }
+      // Column sums of the warp's 16 rows, folded across gid: lane
+      // (gid, tig) ends with rays 32 gid + 8 (i / 2) + 2 tig + i % 2.
+      float v[2 * kNTiles];
+#pragma unroll
+      for (int j = 0; j < kNTiles; ++j) {
+        v[2 * j] = acc[4 * j] + acc[4 * j + 2];
+        v[2 * j + 1] = acc[4 * j + 1] + acc[4 * j + 3];
+      }
+      fold<64>(v, lane & 16, 16);
+      fold<32>(v, lane & 8, 8);
+      fold<16>(v, lane & 4, 4);
+      float* cs = reinterpret_cast<float*>(sm + kColsumOff
+                                           + (k & 1) * kColsumBytes)
+                + warp * kHalfRays;
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+        cs[32 * gid + 8 * (i >> 1) + 2 * tig + (i & 1)] = v[i];
+      // The 8 warps' sums are written (buffers alternate per block, so
+      // this barrier also orders the reads of two blocks ago before the
+      // writes above).
+      asm volatile("bar.sync 1, %0;\n" ::"n"(kConsumers) : "memory");
+      const float* cb = reinterpret_cast<const float*>(
+                            sm + kColsumOff + (k & 1) * kColsumBytes)
+                      + tid;
+      const float s0 = ((cb[0] + cb[256]) + cb[512]) + cb[768];
+      const float s1 = ((cb[1024] + cb[1280]) + cb[1536]) + cb[1792];
+      csum[(size_t)b * kTile + n0 + tid] = s0 + s1;
     }
   }
+}
 
-  // Column sums over the block's 128 rows: the warp's 16 rows by shuffles
-  // across gid, then the 8 warps through shared memory.
-#pragma unroll
-  for (int j = 0; j < kNTiles; ++j) {
-    float s0 = acc[j][0] + acc[j][2];
-    float s1 = acc[j][1] + acc[j][3];
-#pragma unroll
-    for (int m = 4; m < 32; m <<= 1) {
-      s0 += __shfl_xor_sync(0xffffffffu, s0, m);
-      s1 += __shfl_xor_sync(0xffffffffu, s1, m);
-    }
-    if (gid == 0) {
-      colsum[warp][j * 8 + tig * 2] = s0;
-      colsum[warp][j * 8 + tig * 2 + 1] = s1;
-    }
+// One launch of a K6/K7 instance: a persistent grid of as many CTA pairs
+// as fit on the card at once (at most one per block).
+template <bool kSplit>
+cudaError_t launch_dots_bf16(const float* phi, const float* c, float* out,
+                             float* csum, int n_blocks, cudaStream_t s) {
+  static int max_pairs = 0;
+  auto* kernel = dots_bf16_kernel<kSplit>;
+  if (max_pairs == 0) {
+    cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kBf16Smem);
+    if (e != cudaSuccess) return e;
+    int dev = 0, sms = 0, per_sm = 0;
+    e = cudaGetDevice(&dev);
+    if (e == cudaSuccess)
+      e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, kernel, kBf16Threads, kBf16Smem);
+    if (e != cudaSuccess) return e;
+    if (per_sm * sms < kPairs) return cudaErrorInvalidConfiguration;
+    max_pairs = per_sm * sms / kPairs;
   }
-  __syncthreads();
-  if (threadIdx.x < kQuarterRays) {
-    float s = 0.0f;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) s += colsum[w][threadIdx.x];
-    csum[(size_t)b * kTile + n0 + threadIdx.x] = s;
-  }
+  const int pairs = n_blocks < max_pairs ? n_blocks : max_pairs;
+  dots_bf16_kernel<kSplit><<<kPairs * pairs, kBf16Threads, kBf16Smem, s>>>(
+      phi, c, out, csum, n_blocks);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -356,13 +609,8 @@ extern "C" int hagrid_dots_bf16(const float* phi, const float* c, float* out,
                                 void* stream) {
   if (n_blocks <= 0 || n_blocks > (1 << 28))
     return (int)cudaErrorInvalidValue;
-  const dim3 grid(n_blocks * 4), block(kDotThreads);
   const cudaStream_t s = (cudaStream_t)stream;
-  if (split)
-    dots_bf16_kernel<true><<<grid, block, 0, s>>>(phi, c, out, csum,
-                                                  n_blocks);
-  else
-    dots_bf16_kernel<false><<<grid, block, 0, s>>>(phi, c, out, csum,
-                                                   n_blocks);
-  return (int)cudaGetLastError();
+  return (int)(split
+      ? launch_dots_bf16<true>(phi, c, out, csum, n_blocks, s)
+      : launch_dots_bf16<false>(phi, c, out, csum, n_blocks, s));
 }

@@ -4,13 +4,15 @@ kernel library (csrc/*.cu), per kernel.
     python3 -m hagrid_tpu_torch.exp.sass [--out PATH] [--all]
 
 Runs `cuobjdump -sass` on the library that `ops/_build.py` builds (and
-builds it first if needed), and prints for each sweep instance (`--all`:
-every kernel) its instruction count and the opcodes that say where a
-per-pair cost comes from: the reciprocal and its slow path (MUFU.RCP,
-CALL), float <-> int conversions (F2I, I2F), spills (LDL, STL), barriers
-(BAR, SYNCS: mbarrier waits), bulk copies (UBLKCP), shared loads (LDS)
-and the FP32 instructions. PATH receives the whole disassembly. Needs
-the CUDA toolkit (cuobjdump), not a card.
+builds it first if needed), and prints for each sweep instance and each
+bf16 dots instance (K6/K7; `--all`: every kernel) its instruction count
+and the opcodes that say where a per-pair cost comes from: the
+reciprocal and its slow path (MUFU.RCP, CALL), float <-> int conversions
+(F2I, I2F), spills (LDL, STL), barriers (BAR, SYNCS: mbarrier waits),
+bulk copies (UBLKCP), shared loads (LDS), the FP32 instructions, and for
+K6/K7 the warpgroup products (HGMMA, WARPGROUP: their fences and waits),
+the bf16 conversions (F2FP) and shuffles (SHFL). PATH receives the whole
+disassembly. Needs the CUDA toolkit (cuobjdump), not a card.
 """
 
 from __future__ import annotations
@@ -27,7 +29,10 @@ from ..ops import _build
 # Opcode prefixes counted (a prefix counts every modifier: FSETP.GE.AND ...).
 WATCH = ("MUFU.RCP", "CALL", "RET", "F2I", "I2F", "LDL", "STL", "BAR",
          "SYNCS", "UBLKCP", "LDS", "LDG", "STG", "FADD", "FMUL", "FFMA",
-         "FSETP", "FSEL", "FMNMX", "LOP3", "BRA", "ATOMG", "RED")
+         "FSETP", "FSEL", "FMNMX", "LOP3", "BRA", "ATOMG", "RED", "HGMMA",
+         "WARPGROUP", "F2FP", "SHFL")
+# Kernels the census covers without --all.
+SELECT = ("sweep", "dots_bf16")
 _INSN = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)")
 
 
@@ -93,7 +98,7 @@ def run(lib_path=None, out=None, every=False) -> dict:
     per = census(sass)
     names = demangle(list(per))
     return {names[k]: summary(c) for k, c in per.items()
-            if every or "sweep" in names[k]}
+            if every or any(w in names[k] for w in SELECT)}
 
 
 def main(argv=None) -> int:

@@ -20,7 +20,8 @@ exp/r3_kernel_mt20.py (make_det_kernel) and exp/r4_mxu_micro.py
   c f32[B*3072, 16]. Per block, C_blk . phi with both operands rounded to
   bf16 and f32 accumulation, the 24 groups of 128 rows summed. split=True
   takes hi = bf16(x), lo = bf16(x - hi) of both operands and sums
-  hi.hi + hi.lo + lo.hi.
+  hi.hi + hi.lo + lo.hi. `dots_bf16_library` lays the same function out
+  as one library product (a yardstick for chip_smoke.py and the tests).
 
 The TPU kernels' sequential grid rewrites one output block, so only the
 last block's (128, T) sums come back; here every block also returns its T
@@ -265,3 +266,38 @@ def dots_bf16(phi, c, split=False):
     raise_on(lib, err, "dots_bf16")
     launches["dots_bf16x3" if split else "dots_bf16"] += 1
     return out, csum
+
+
+def dots_bf16_library(phi, c, split=False):
+    """One library product that computes K6's (split=True: K7's) function,
+    the yardstick chip_smoke.py times beside the kernel; the port never
+    calls it. Lays the operands out here and returns `call`, a function of
+    no arguments that runs the one product and returns every block's
+    (128, T) sums as f32[B, 128, T]: the bf16-rounded C as (B*128, 24*16),
+    the groups along the depth, against bf16(phi) stacked 24 times (K7:
+    depth 3 * 384, [hi | hi | lo] against [phi_hi; phi_lo; phi_hi]).
+
+    On the card the operands are bf16 and the product is one torch.mm with
+    f32 output (`out_dtype`); on the CPU they are the rounded values in
+    f32 and the product an f32 matmul."""
+    n_blocks = _check_dots(phi, c, BLOCK_C_ROWS, DOT_DEPTH, "dots_bf16")
+    groups = BLOCK_C_ROWS // BLOCK_ROWS
+    tile = phi.shape[1]
+
+    def depth_major(x):       # (B*3072, 16) -> (B*128, 24*16)
+        return (x.reshape(n_blocks, groups, BLOCK_ROWS, DOT_DEPTH)
+                .transpose(1, 2).reshape(n_blocks * BLOCK_ROWS, -1))
+
+    ch, cl = bf16_split(c)
+    ph, pl = bf16_split(phi)
+    a_parts, b_parts = [depth_major(ch)], [ph.repeat(groups, 1)]
+    if split:
+        a_parts += [depth_major(ch), depth_major(cl)]
+        b_parts += [pl.repeat(groups, 1), ph.repeat(groups, 1)]
+    a = torch.cat(a_parts, 1)
+    b = torch.cat(b_parts, 0)
+    shape = (n_blocks, BLOCK_ROWS, tile)
+    if phi.device.type == "cpu":
+        return lambda: (a @ b).reshape(shape)
+    a, b = a.to(torch.bfloat16), b.to(torch.bfloat16)
+    return lambda: torch.mm(a, b, out_dtype=torch.float32).reshape(shape)

@@ -409,6 +409,70 @@ def test_dots_bf16_matches_plain_on_card(cuda, split):
     assert (csum - want_cs).abs().max() <= 1e-4 * want_cs.abs().max()
 
 
+def _dots_bf16_on_card(phi, c, split):
+    """K6 / K7 through the wrapper; checks that exactly one launch
+    counted."""
+    key = "dots_bf16x3" if split else "dots_bf16"
+    before = mk.launches[key]
+    got = mk.dots_bf16(phi, c, split=split)
+    torch.cuda.synchronize()
+    assert mk.launches[key] == before + 1
+    return got
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("split", [False, True])
+@pytest.mark.parametrize("blocks", [1, 2, 65, 66, 67, 133])
+def test_dots_bf16_persistent_schedule_on_card(cuda, blocks, split):
+    """The persistent grid of CTA pairs (66 on an H100 SXM) at fewer
+    blocks than pairs, as many, one more, and two rounds and one: the
+    last block's sums and every block's column sums within 1e-4 of the
+    largest of that block's plain sums."""
+    _, _, phi, c = mxu_micro.inputs(blocks=blocks, seed=20 + blocks,
+                                    device=cuda)
+    out, csum = _dots_bf16_on_card(phi, c, split)
+    want, want_cs = mk.dots_bf16_plain(phi, c, split=split)
+    assert (out - want).abs().max() <= 1e-4 * want.abs().max()
+    tol = 1e-4 * want_cs.abs().amax(1)
+    assert ((csum - want_cs).abs().amax(1) <= tol).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("split", [False, True])
+def test_dots_bf16_one_hot_on_card(cuda, split):
+    """One stream block whose C holds a 1 at depth r % 16 of row r in
+    group r % 24, and for rows below 64 a second one in group
+    (r + 5) % 24: row r of the sums is phi's row r % 16 (rounded to bf16)
+    times the groups that carry it. A transposed or mis-strided B
+    descriptor, or a misplaced A fragment, moves or mixes the rows (a
+    misplaced lo tile errs by about 2^-9 of phi). K6's sums are exact.
+    bf16x3 adds each group's hi, then its lo (hi.hi, hi.lo; lo.hi is 0):
+    hi + lo is a float, so the rows one group carries are exact, but the
+    second group's 2 hi + lo can need a 25th bit, which the tensor cores'
+    accumulator drops in its own way: those rows are held within two
+    roundings of 2 (hi + lo)."""
+    _, _, phi, _ = mxu_micro.inputs(blocks=1, seed=31, device=cuda)
+    c = torch.zeros((mk.BLOCK_C_ROWS, mk.DOT_DEPTH), device=cuda)
+    rows = torch.arange(mk.BLOCK_ROWS, device=cuda)
+    depth = rows % mk.DOT_DEPTH
+    c[(rows % 24) * mk.BLOCK_ROWS + rows, depth] = 1.0
+    c[((rows[:64] + 5) % 24) * mk.BLOCK_ROWS + rows[:64], depth[:64]] = 1.0
+    hi, lo = mk.bf16_split(phi)
+    rowval = hi + lo if split else hi
+    want = rowval[depth] * torch.where(rows < 64, 2.0, 1.0)[:, None]
+    out, csum = _dots_bf16_on_card(phi, c, split)
+    assert torch.equal(out[64:], want[64:])
+    if split:
+        # Two roundings, each below 2^-23 of the intermediate sum; a
+        # factor 2 covers that sum's binade.
+        tol = 4 * 2.0 ** -23 * want[:64].abs()
+        assert ((out[:64] - want[:64]).abs() <= tol).all()
+    else:
+        assert torch.equal(out[:64], want[:64])
+    want_cs = mk.dots_bf16_plain(phi, c, split=split)[1]
+    assert (csum - want_cs).abs().max() <= 1e-4 * want_cs.abs().max()
+
+
 @pytest.mark.gpu
 def test_dynamic_frame_on_card_matches_oracle(cuda):
     """A warm session with a motion margin, rebuilt on deformed frames:

@@ -195,6 +195,81 @@ def test_dots_bf16_last_block_survives(name, split, n_blocks):
     assert split or rel > 1e-4
 
 
+BF16_TOL = 1e-4   # chip_smoke.py's K6/K7 tolerance, x max|ref|
+
+
+@pytest.mark.parametrize("split", [False, True])
+def test_dots_bf16_library_matches_plain(split):
+    """The library yardstick (one product of the depth-major layout, f32
+    matmuls of the rounded operands on the CPU) computes the plain
+    version's function: every block's sums, hence the last block's sums
+    and all column sums, within BF16_TOL."""
+    _, _, phi, c = mxu_micro.inputs(blocks=3, tile=TILE, seed=11,
+                                    device="cpu")
+    sums = mk.dots_bf16_library(phi, c, split=split)()
+    assert sums.shape == (3, 128, TILE) and sums.dtype == torch.float32
+    out, csum = mk.dots_bf16_plain(phi, c, split=split)
+    assert (sums[-1] - out).abs().max() <= BF16_TOL * out.abs().max()
+    assert ((sums.sum(1) - csum).abs().max()
+            <= BF16_TOL * csum.abs().max())
+
+
+def _kernel_order_model(phi, c, split):
+    """The redesigned K6/K7's arithmetic in numpy, in its order: per block
+    and warpgroup (rows 0-63, 64-127), the 24 groups' products chained
+    into one f32 accumulator per row (a group's 16-deep product taken
+    exactly, then rounded once into the accumulator), K7's three products
+    hi.hi, hi.lo, lo.hi in that order; the column sums of each warp's 16
+    rows, the four warps of a warpgroup in order, then the two
+    warpgroups added last. Returns (out of the last block, csum)."""
+    bf = lambda a: a.astype(jnp.bfloat16).astype(np.float32)  # noqa: E731
+    ph = bf(phi)
+    products = [(0, ph)]
+    if split:
+        pl_ = bf(phi - ph)
+        products = [(0, ph), (0, pl_), (1, ph)]
+    blocks = c.reshape(-1, 24, 128, 16)
+    outs, csums = [], []
+    for blk in blocks:
+        ch = bf(blk)
+        parts = (ch, bf(blk - ch))
+        acc = np.zeros((128, phi.shape[1]), np.float32)
+        for q in range(24):
+            for a, b in products:
+                prod = parts[a][q].astype(np.float64) @ b.astype(np.float64)
+                acc = (acc + prod.astype(np.float32)).astype(np.float32)
+        warps = acc.reshape(2, 4, 16, -1).sum(2, dtype=np.float32)
+        wgs = np.zeros((2, phi.shape[1]), np.float32)
+        for w in range(4):
+            wgs = (wgs + warps[:, w]).astype(np.float32)
+        outs.append(acc)
+        csums.append((wgs[0] + wgs[1]).astype(np.float32))
+    return outs[-1], np.stack(csums)
+
+
+@pytest.mark.parametrize("name,split", [("mxu1_kernel", False),
+                                        ("mxu3_kernel", True)])
+def test_dots_bf16_kernel_order_model(name, split):
+    """The kernel's accumulation order (modelled in numpy at B = 3) stays
+    within BF16_TOL of the plain version and of the reference's Pallas
+    kernel run interpreted: the tolerance the card check uses covers the
+    order. The model's own distance is far below it."""
+    _, _, phi, c = (a.numpy() for a in mxu_micro.inputs(
+        blocks=3, tile=TILE, seed=12, device="cpu"))
+    out, csum = _kernel_order_model(phi, c, split)
+    p_out, p_cs = (x.numpy() for x in mk.dots_bf16_plain(
+        torch.as_tensor(phi), torch.as_tensor(c), split=split))
+    ref = _ref_dots(name, phi, c, 3072, 16)
+    for got, want in ((out, p_out), (csum, p_cs), (out, ref)):
+        err = np.abs(got - want).max()
+        assert err <= BF16_TOL * np.abs(want).max()
+        assert err <= 0.1 * BF16_TOL * np.abs(want).max()
+    for b in range(3):
+        ref_b = _ref_dots(name, phi, c[:(b + 1) * 3072], 3072, 16)
+        cs = ref_b.astype(np.float64).sum(0)
+        assert np.abs(csum[b] - cs).max() <= BF16_TOL * np.abs(cs).max()
+
+
 def test_bf16_split_equals_numpy():
     x = np.random.default_rng(9).standard_normal(4096).astype(np.float32)
     x[:4] = [0.0, -0.0, 1.0, 3e38]
