@@ -20,9 +20,10 @@ Phases, one line each (any failure exits non-zero before the result):
    card, and a 128x128 eye-light render against the oracle's render and
    the JAX package's dhash;
 6. with --profile only, run last: torch.profiler over the warm frame, the
-   warm rebuild, one AO wave, render_ao and ambient_occlusion (device
-   time by op, device busy and idle share against the host wall time of
-   synced runs); the full per-op list goes to PATH if given;
+   warm rebuild, one AO wave, render_ao and ambient_occlusion, and
+   phase 12's irregular primary frame and AO wave (device time by op,
+   device busy and idle share against the host wall time of synced
+   runs); the full per-op list goes to PATH if given;
 7. the any-hit sweep kernel (K3) against its plain version: the round-0
    stream of the first AO wave of the Sponza frame (4 samples' shape,
    max_dist 0.1 x the largest extent, origin-sorted, binned) and a random
@@ -55,7 +56,21 @@ Phases, one line each (any failure exits non-zero before the result):
    no local memory (hagrid_tpu_torch.exp.sass, [sass]); then the
    two records through the entry points a user calls
    (hagrid_tpu_torch.exp.kernel_mt20.run and .mxu_micro.run) with the
-   launch counts from zero.
+   launch counts from zero;
+12. the paper's structures at full width on the Sponza-scale scene:
+   RenderSession(structure="irregular") with BuildParams() (cold build,
+   3 warm rebuilds, describe(), capacities, device memory,
+   check_irregular on a sample of 2^20 voxels and (tri, voxel) pairs),
+   a 1024x1024 block-order primary frame through the compacted wavefront
+   (ms, Mrays/s, hit fraction, wavefront.last_trace_stats with no
+   truncated ray) and one AO wave of 1,048,576 any-hit rays through
+   trace_sorted, each with 4096 sampled rays against the oracle; one
+   warm rebuild with BuildParams.dynamic(); the uniform grid's build and
+   the same primary frame; and the irregular and uniform builds of
+   Cornell and a random soup on the card, whose integer tables must
+   equal the CPU builds'. With --profile, phase 6 adds the irregular
+   primary frame and AO wave. One JSON line {"structures": ...} carries
+   the numbers.
 The last two lines are the kernels' JSON record and
 {"ok": true, "device": {...}}. Needs a CUDA device; imports no JAX.
 """
@@ -75,9 +90,10 @@ from hagrid_tpu_torch import oracle, scenes
 from hagrid_tpu_torch.core.camera import block_index, primary_rays
 from hagrid_tpu_torch.core.types import Triangles
 from hagrid_tpu_torch.exp import kernel_mt20, mxu_micro, sass
+from hagrid_tpu_torch.grid import invariants, irregular, uniform
 from hagrid_tpu_torch.grid.packet import build_packet, rays_to_x
 from hagrid_tpu_torch.io.image import dhash, hamming, shade_eyelight
-from hagrid_tpu_torch.ops import _build, sortrays
+from hagrid_tpu_torch.ops import _build, sortrays, wavefront
 from hagrid_tpu_torch.ops import micro_kernels as mk
 from hagrid_tpu_torch.ops import sweep_kernel as sk
 from hagrid_tpu_torch.ops.sweep_kernel import sweep_blocks, sweep_blocks_plain
@@ -138,6 +154,16 @@ FMA_TOL = 1e-5
 AO_SIZE, AO_SAMPLES = 1024, 4
 LIGHT = (15.0, 14.0, 6.0)       # inside the closed 30 x 15 x 12 hall
 PATH_SIZE, PATH_BOUNCES = 512, 4
+# Phase 12: warm rebuilds and frames timed per structure, the voxel
+# sample of check_irregular, and the integer tables that the card's
+# builds must share with the CPU's.
+STRUCT_REBUILDS, STRUCT_FRAMES = 3, 2
+CHECK_SAMPLE = 1 << 20
+IRREGULAR_TABLES = ("top_res_log", "top_offset", "entries", "cell_min",
+                    "cell_max", "cell_starts", "ref_ids", "alive",
+                    "preexpanded", "top_info", "erec", "num_entries",
+                    "total_refs")
+UNIFORM_TABLES = ("cell_starts", "ref_ids", "total_refs")
 DEV = "cuda"
 
 
@@ -753,6 +779,161 @@ def dynamic_phase(v, f, rays, card):
     return dict(fps=fps, ms=ms, launches=launches)
 
 
+def wall_and_device_ms(fn, iters):
+    """(host wall ms per synced call, list of ms between CUDA events per
+    call, last result) over `iters` calls."""
+    walls, devs, out = [], [], None
+    for _ in range(iters):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        w0 = time.perf_counter()
+        start.record()
+        out = fn()
+        end.record()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - w0) * 1e3)
+        devs.append(start.elapsed_time(end))
+    return walls, devs, out
+
+
+def span(xs):
+    return f"{min(xs):.3f}-{max(xs):.3f}"
+
+
+def wave_record(name, wave, fn, tris, card, any_hit):
+    """Trace a wave through a wavefront session: one untimed call, then
+    STRUCT_FRAMES timed; last_trace_stats (no truncated ray), 4096
+    sampled rays against the oracle. Returns the wave's record and
+    hits."""
+    fn()
+    walls, devs, hits = wall_and_device_ms(fn, STRUCT_FRAMES)
+    stats = dict(wavefront.last_trace_stats)
+    hit_frac = float((hits.tri_id >= 0).float().mean())
+    mrays = [wave.count / ms / 1e3 for ms in devs]
+    print(f"[structures] {name}: {wave.count} rays, host wall "
+          f"{span(walls)} ms, {span(devs)} ms between CUDA events = "
+          f"{span(mrays)} Mrays/s ({card}); hit fraction {hit_frac:.4f}; "
+          f"last_trace_stats {stats}", flush=True)
+    check(stats["truncated_rays"] == 0, f"{name}: rays were truncated")
+    if any_hit:
+        check_anyhit_sample(name, wave, hits, tris)
+    else:
+        check(0.5 < hit_frac <= 1.0, f"{name}: hit fraction {hit_frac}")
+        check_closest_sample(name, wave, hits, tris)
+    return dict(rays=wave.count, wall_ms=walls, ms=devs, mrays_s=mrays,
+                hit_fraction=hit_frac, **stats), hits
+
+
+def build_record(name, session, tris, card):
+    """Cold build (done by the caller) and STRUCT_REBUILDS warm rebuilds:
+    host wall and device ms of each."""
+    walls, devs, _ = wall_and_device_ms(lambda: session.rebuild(tris),
+                                        STRUCT_REBUILDS)
+    print(f"[structures] {name} warm rebuild x{STRUCT_REBUILDS}: host wall "
+          f"{span(walls)} ms, {span(devs)} ms between CUDA events "
+          f"({card}); {session.describe()}", flush=True)
+    return dict(warm_wall_ms=walls, warm_ms=devs,
+                describe=session.describe())
+
+
+def tables_equal(a, b, fields):
+    return [k for k in fields
+            if not torch.equal(getattr(a, k).cpu(), getattr(b, k).cpu())]
+
+
+def structures_phase(v, tris, rays, card):
+    """Phase 12: the irregular and uniform structures at full width, and
+    small builds on the card against the CPU's."""
+    rec = {"card": card}
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    base_mem = torch.cuda.memory_allocated()
+    (cold,), (cold_ms,), s_irr = wall_and_device_ms(
+        lambda: RenderSession.create(tris, structure="irregular", verts=v),
+        1)
+    g = s_irr.grid
+    caps = dict(e_cap=g.entries.shape[0], r2_cap=g.ref_ids.shape[0],
+                c_cap=g.cell_min.shape[0],
+                cells_alive=int(g.alive.sum()),
+                entries=int(g.num_entries), refs=int(g.total_refs))
+    mem = dict(grid_mb=(torch.cuda.memory_allocated() - base_mem) / 2**20,
+               build_peak_mb=(torch.cuda.max_memory_allocated() - base_mem)
+               / 2**20)
+    print(f"[structures] irregular BuildParams(): cold build {cold:.1f} ms "
+          f"host wall, {cold_ms:.1f} ms between CUDA events ({card}); "
+          f"capacities {caps}; device memory {mem}", flush=True)
+    irr = dict(cold_wall_ms=cold, cold_ms=cold_ms, **caps, **mem,
+               **build_record("irregular", s_irr, tris, card))
+    t0 = time.perf_counter()
+    invariants.check_irregular(s_irr.grid, sample=CHECK_SAMPLE)
+    torch.cuda.synchronize()
+    irr["check_irregular_s"] = time.perf_counter() - t0
+    print(f"[structures] check_irregular on {CHECK_SAMPLE} sampled voxels, "
+          f"(tri, voxel) and (cell, voxel) pairs: passed in "
+          f"{irr['check_irregular_s']:.2f} s", flush=True)
+    irr["primary"], hits = wave_record(
+        "irregular primary 1024x1024", rays, lambda: s_irr.trace(rays,
+                                                                 coherent=True),
+        tris, card, any_hit=False)
+    p, n, found = hit_points_normals(rays, hits, tris.n)
+    gen = torch.Generator(device=DEV).manual_seed(0)
+    wave = integrators.ao_rays(p, n, found,
+                               integrators.default_ao_distance(s_irr), gen)
+    irr["ao_wave"], _ = wave_record(
+        "irregular AO wave", wave, lambda: integrators.trace_sorted(
+            s_irr, wave, any_hit=True), tris, card, any_hit=True)
+    irr["peak_mb"] = (torch.cuda.max_memory_allocated() - base_mem) / 2**20
+    t0 = time.perf_counter()
+    s_dyn = RenderSession.create(tris, BuildParams.dynamic(),
+                                 structure="irregular", verts=v)
+    torch.cuda.synchronize()
+    irr["dynamic_cold_wall_ms"] = (time.perf_counter() - t0) * 1e3
+    walls, devs, _ = wall_and_device_ms(lambda: s_dyn.rebuild(tris), 1)
+    irr["dynamic_warm_wall_ms"], irr["dynamic_warm_ms"] = walls[0], devs[0]
+    print(f"[structures] irregular BuildParams.dynamic(): cold "
+          f"{irr['dynamic_cold_wall_ms']:.1f} ms, warm rebuild {walls[0]:.1f}"
+          f" ms host wall, {devs[0]:.1f} ms between CUDA events ({card}); "
+          f"{s_dyn.describe()}", flush=True)
+    del s_dyn
+    rec["irregular"] = irr
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    s_uni = RenderSession.create(tris, structure="uniform", verts=v)
+    torch.cuda.synchronize()
+    uni = dict(cold_wall_ms=(time.perf_counter() - t0) * 1e3,
+               ref_capacity=s_uni.grid.ref_ids.shape[0])
+    uni.update(build_record("uniform", s_uni, tris, card))
+    uni["primary"], _ = wave_record(
+        "uniform primary 1024x1024", rays,
+        lambda: s_uni.trace(rays, coherent=True), tris, card, any_hit=False)
+    rec["uniform"] = uni
+    del s_uni
+
+    # The card's builds against the CPU's: integer tables equal.
+    small = {}
+    for name, (sv, sf) in (("cornell", scenes.cornell_box()),
+                           ("soup150", scenes.random_soup(150, seed=0))):
+        on = Triangles.from_mesh(sv, sf, device=DEV)
+        off = Triangles.from_mesh(sv, sf, device="cpu")
+        bad = tables_equal(irregular.build_irregular(on),
+                           irregular.build_irregular(off), IRREGULAR_TABLES)
+        bad += tables_equal(uniform.build_uniform(on),
+                            uniform.build_uniform(off), UNIFORM_TABLES)
+        small[name] = bad
+        print(f"[structures] {name}: irregular and uniform builds on the "
+              f"card against the CPU: "
+              f"{'tables equal' if not bad else f'differ in {bad}'}",
+              flush=True)
+        check(not bad, f"{name}: the card's build differs from the CPU's")
+    rec["card_equals_cpu"] = {k: not b for k, b in small.items()}
+    rec["phase_s"] = time.perf_counter() - t_phase
+    print(f"[structures] phase 12 took {rec['phase_s']:.1f} s", flush=True)
+    print(json.dumps({"structures": rec}), flush=True)
+    return s_irr, wave
+
+
 def max_diff(got, want):
     return max(float((a.float() - b.float()).abs().max())
                for a, b in zip(got, want))
@@ -1133,6 +1314,9 @@ def main(profile_path=False, with_variants=False) -> int:
     # 11. the sweep-cost micro-kernels and path A's records
     micro_kernels = micro_phase(card, dev)
 
+    # 12. the paper's structures: irregular and uniform grids, wavefront
+    s_irr, irr_wave = structures_phase(v, tris, rays, card)
+
     # 6. optional device-time breakdown, run last
     if profile_path is not False:
         for what, fn in (("frame", lambda: session.trace(rays, coherent=True)),
@@ -1142,7 +1326,12 @@ def main(profile_path=False, with_variants=False) -> int:
                              cal_key="ao")),
                          ("render_ao", slice_runs["render_ao"]),
                          ("ambient_occlusion",
-                          slice_runs["ambient_occlusion"])):
+                          slice_runs["ambient_occlusion"]),
+                         ("irregular primary frame",
+                          lambda: s_irr.trace(rays, coherent=True)),
+                         ("irregular AO wave",
+                          lambda: integrators.trace_sorted(
+                              s_irr, irr_wave, any_hit=True))):
             profile(what, fn, card, profile_path)
 
     # ms/plain_ms: the gather call (the main path's); *_pregathered: the

@@ -14,7 +14,9 @@ import torch
 
 from .core.types import Rays, Triangles
 from .device import resolve
+from .grid.irregular import IrregularGrid
 from .grid.packet import PacketGrid
+from .grid.uniform import UniformGrid
 from .render.dynamic import AnimatedScene
 
 
@@ -63,3 +65,39 @@ def packet_grid_from_reference(jg, device=None) -> PacketGrid:
         jg.dims3, jg.bbox_lo, jg.bbox_hi, jg.rs, jg.rowinfo, jg.cols,
         jg.planes, jg.total_refs, jg.total_pairs, t.v0, t.e1, t.e2, t.n,
         device=device)
+
+
+def _tris_from_reference(t, device) -> Triangles:
+    return triangles_from_numpy(t.v0, t.e1, t.e2, t.n, device)
+
+
+def uniform_grid_from_reference(jg, device=None) -> UniformGrid:
+    """The port's UniformGrid from the JAX package's."""
+    i = torch.int32
+    return UniformGrid(
+        dims=tuple(int(d) for d in jg.dims),
+        bbox_lo=_t(jg.bbox_lo, torch.float32, device),
+        bbox_hi=_t(jg.bbox_hi, torch.float32, device),
+        cell_starts=_t(jg.cell_starts, i, device),
+        ref_ids=_t(jg.ref_ids, i, device),
+        total_refs=_t(jg.total_refs, i, device),
+        tris=_tris_from_reference(jg.tris, device))
+
+
+_IRREGULAR_INT = ("top_res_log", "top_offset", "entries", "cell_min",
+                  "cell_max", "cell_starts", "ref_ids", "num_entries",
+                  "total_refs", "top_info", "erec")
+
+
+def irregular_grid_from_reference(jg, device=None) -> IrregularGrid:
+    """The port's IrregularGrid from the JAX package's."""
+    f, b = torch.float32, torch.bool
+    return IrregularGrid(
+        top_dims=tuple(int(d) for d in jg.top_dims), levels=int(jg.levels),
+        bbox_lo=_t(jg.bbox_lo, f, device), bbox_hi=_t(jg.bbox_hi, f, device),
+        alive=_t(jg.alive, b, device),
+        preexpanded=_t(jg.preexpanded, b, device),
+        ref_tris=_t(jg.ref_tris, f, device),
+        tris=_tris_from_reference(jg.tris, device),
+        **{k: _t(getattr(jg, k), torch.int32, device)
+           for k in _IRREGULAR_INT})

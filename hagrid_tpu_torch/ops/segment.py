@@ -9,6 +9,9 @@ out-of-range semantics, which torch does not share:
 - `trunc_i32` is XLA's saturating f32 -> i32 cast: torch wraps
   out-of-range values to INT_MIN, which turns a saturated upper bound
   into column 0. Values are clamped in float first (NaN -> 0).
+- `take` is a jnp gather `table[idx]`: a negative index counts from the
+  end once, and what is still out of range is clamped. torch raises
+  (CPU) or device-asserts (CUDA) instead.
 """
 
 from __future__ import annotations
@@ -40,6 +43,13 @@ def trunc_i32(x: torch.Tensor) -> torch.Tensor:
     dims far below), NaN -> 0."""
     x = torch.nan_to_num(x, nan=0.0).clamp(-_I32_SAFE, _I32_SAFE)
     return x.to(torch.int32)
+
+
+def take(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """table[idx] along dim 0 with jnp's out-of-range semantics."""
+    n = table.shape[0]
+    idx = idx.long()
+    return table[torch.where(idx < 0, idx + n, idx).clamp(0, n - 1)]
 
 
 def cumsum_i32(x: torch.Tensor, dim: int = 0) -> torch.Tensor:

@@ -1,13 +1,19 @@
 """RenderSession: build + trace under one object (port of
-hagrid_tpu/render/session.py, packet structure).
+hagrid_tpu/render/session.py).
 
-Owns the current packet grid, rebuilds it per frame at the frame-1
-capacity and dims (no host sync after the first frame), and traces camera
-waves and incoherent secondary waves with the planned sweep. The sweep's
-budgets (blocks, and live rows for the compact planner) are calibrated
-once per wave shape off the timed path (one host read per probe);
-calibrated frames read nothing back, and overflow stays a device flag
-that `poll_overflow` reads at frame boundaries.
+Structures:
+- "packet" (default): the slice-major packet grid and the planned sweep
+  (the CUDA sweep kernel on the card). Frames after the first rebuild at
+  the frame-1 capacity and dims with no host sync. The sweep's budgets
+  (blocks, and live rows for the compact planner) are calibrated once
+  per wave shape off the timed path (one host read per probe);
+  calibrated frames read nothing back, and overflow stays a device flag
+  that `poll_overflow` reads at frame boundaries.
+- "irregular": the two-level irregular grid and the compacted wavefront
+  tracer on its packed tables.
+- "uniform": the single-level grid and the same wavefront.
+The wavefront structures read the device once per round of the trace and
+a few times per build; they have no budgets to calibrate.
 """
 
 from __future__ import annotations
@@ -19,10 +25,11 @@ import numpy as np
 import torch
 
 from ..core.types import Hits, Rays, Triangles
-from ..grid import packet
+from ..grid import irregular, packet, uniform
 from ..ops.sweep_trace import trace_sweep
 from ..utils.config import BuildParams
 
+_STRUCTURES = ("packet", "irregular", "uniform")
 # Ceiling on the calibrated block budget: the frame's transient arrays
 # grow with it (gidx 128 B/block, forward-fill scans, tile_of/tminb).
 _BMAX_CAP = 1 << 20
@@ -46,7 +53,7 @@ def _rung(x: int, base: int) -> int:
 class RenderSession:
     params: BuildParams
     structure: str
-    grid: packet.PacketGrid | None
+    grid: object
     bbox: tuple | None = None  # host-side scene bounds (warm rebuilds)
     # Device bool: OR of the sweep's overflow flags since session start.
     trace_overflow: torch.Tensor | None = None
@@ -59,16 +66,16 @@ class RenderSession:
     def create(tris: Triangles, params: BuildParams | None = None,
                structure: str = "packet", verts=None,
                bbox_margin: float = 0.0) -> "RenderSession":
-        """The reference's signature. params: kept on the session for
-        callers that read it back (the packet build uses none of its
-        fields). verts: optional host vertex array; gives the build its
-        bounds without a device read. bbox_margin: fraction of the scene extent
-        added on every side of the session bbox, which warm rebuilds
-        reuse (geometry that moves outside it is clamped into boundary
-        cells, and hits can be missed)."""
-        if structure != "packet":
-            raise ValueError(f"structure {structure!r} is not ported; "
-                             f"only 'packet' is")
+        """The reference's signature. params: the irregular build's knobs
+        (the uniform build reads snd_density, the packet build none).
+        verts: optional host vertex array; gives the packet build its
+        bounds without a device read. bbox_margin: fraction of the scene
+        extent added on every side of the packet session's bbox, which
+        warm rebuilds reuse (geometry that moves outside it is clamped
+        into boundary cells, and hits can be missed)."""
+        if structure not in _STRUCTURES:
+            raise ValueError(f"unknown structure {structure!r}; one of "
+                             f"{_STRUCTURES}")
         s = RenderSession(params=params or BuildParams(),
                           structure=structure, grid=None)
         if verts is not None and len(verts):
@@ -80,8 +87,24 @@ class RenderSession:
         return s
 
     def rebuild(self, tris: Triangles):
-        """Per-frame rebuild; frames after the first reuse frame 1's
-        capacity and dims and run with no host synchronisation."""
+        """Per-frame rebuild. Warm packet frames reuse frame 1's capacity
+        and dims and run with no host synchronisation; warm uniform
+        frames reuse its ref capacity and dims, warm irregular frames its
+        top dims."""
+        if self.structure == "uniform":
+            kw = {}
+            if self.grid is not None:
+                kw = dict(ref_capacity=self.grid.ref_ids.shape[0],
+                          dims=self.grid.dims)
+            self.grid = uniform.build_uniform(
+                tris, density=self.params.snd_density, **kw)
+            return self.grid.total_refs
+        if self.structure == "irregular":
+            kw = {}
+            if self.grid is not None:
+                kw = dict(top_dims=self.grid.top_dims)
+            self.grid = irregular.build_irregular(tris, self.params, **kw)
+            return self.grid.total_refs
         kw = dict(bbox=self.bbox)
         if self.grid is not None:
             kw.update(ref_capacity=self.grid.ref_capacity,
@@ -97,7 +120,13 @@ class RenderSession:
         """Trace a wave; coherent=True for camera-ordered waves, which
         skip the binning. cal_key distinguishes wave kinds of one shape
         that need separate budgets (AO samples share one, path bounces
-        another)."""
+        another). The wavefront structures ignore both."""
+        if self.structure == "uniform":
+            return uniform.trace_uniform_fast(self.grid, rays,
+                                              any_hit=any_hit)
+        if self.structure == "irregular":
+            return irregular.trace_irregular_fast(self.grid, rays,
+                                                  any_hit=any_hit)
         key = (any_hit, coherent, rays.count, cal_key)
         cal = self._bmax_cal.get(key)
         if cal is None:
@@ -155,7 +184,10 @@ class RenderSession:
         Returns the OR of the flags."""
         if not self._ovf:
             return False
-        flags = {k: bool(v) for k, v in self._ovf.items()}
+        keys = list(self._ovf)
+        # One read of all the flags at once.
+        flags = dict(zip(keys, torch.stack(
+            [self._ovf[k].reshape(()) for k in keys]).tolist()))
         any_ovf = any(flags.values())
         if any_ovf and recalibrate:
             for key, v in flags.items():
@@ -171,4 +203,13 @@ class RenderSession:
 
     def describe(self) -> str:
         g = self.grid
+        if self.structure == "uniform":
+            return (f"uniform dims={g.dims} cells={g.num_cells} "
+                    f"refs={int(g.total_refs)}")
+        if self.structure == "irregular":
+            st = g.stats()
+            return (f"irregular top={st['top_dims']} levels={st['levels']} "
+                    f"cells={st['cells']} refs={st['refs']} "
+                    f"mean_refs={st['refs_per_cell_mean']:.2f} "
+                    f"empty={st['empty_cell_frac']:.2f}")
         return f"packet dims3={g.dims3} ref_capacity={g.ref_capacity}"

@@ -2,7 +2,7 @@
 hagrid_tpu/scenes.py).
 
 The mesh generators are plain numpy and produce the same arrays as
-hagrid_tpu.scenes (tests/test_torch_core.py holds them equal); they live
+hagrid_tpu/scenes.py (tests/test_torch_core.py holds them equal); they live
 here so the port runs where neither JAX nor the JAX package is
 importable. The camera presets are built on the port's own Camera.
 

@@ -8,10 +8,10 @@ import dataclasses
 
 @dataclasses.dataclass(frozen=True)
 class BuildParams:
-    """The irregular grid's build knobs, kept with the reference's names
-    and defaults so that callers written against it run unchanged. The
-    packet structure (the only one ported) reads none of them: its dims
-    come from build_packet's own densities."""
+    """The irregular grid's build knobs, with the reference's names and
+    defaults. The uniform build reads snd_density; the packet build
+    reads none of them (its dims come from build_packet's own
+    densities)."""
 
     top_density: float = 0.12
     snd_density: float = 2.4

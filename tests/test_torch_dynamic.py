@@ -146,7 +146,7 @@ def test_create_takes_the_reference_signature():
         assert {k: getattr(a, k) for k in a.__dataclass_fields__} == \
             {k: getattr(b, k) for k in b.__dataclass_fields__}
     with pytest.raises(ValueError):
-        RenderSession.create(tris, p, "irregular")
+        RenderSession.create(tris, p, "bvh")
 
 
 def test_animated_scene_defaults_to_the_card():

@@ -1,7 +1,8 @@
 """PyTorch port on the card: the CUDA sweep kernel (closest hit and any
-hit) and the sweep-cost micro-kernels against their plain versions, and
-traced waves (static and deformed scenes) against the oracle, all on an
-NVIDIA GPU.
+hit) and the sweep-cost micro-kernels against their plain versions,
+traced waves (static and deformed scenes) against the oracle, and the
+irregular and uniform builds and the wavefront against the CPU's, all on
+an NVIDIA GPU.
 
 These tests skip without a GPU (the CUDA kernel has no CPU mode). The
 module imports no JAX, so it also runs on a machine without it; there,
@@ -18,6 +19,7 @@ from hagrid_tpu_torch import oracle, scenes
 from hagrid_tpu_torch.core.camera import primary_rays
 from hagrid_tpu_torch.core.types import Triangles
 from hagrid_tpu_torch.exp import kernel_mt20, mxu_micro
+from hagrid_tpu_torch.grid import irregular, uniform
 from hagrid_tpu_torch.grid.packet import build_packet, rays_to_x
 from hagrid_tpu_torch.ops import micro_kernels as mk
 from hagrid_tpu_torch.ops import sweep_kernel as sk
@@ -30,6 +32,7 @@ from hagrid_tpu_torch.render.sampling import (cosine_hemisphere,
                                               hit_points_normals)
 from hagrid_tpu_torch.render.session import RenderSession
 from hagrid_tpu_torch.utils import profiling
+from hagrid_tpu_torch.utils.config import BuildParams
 
 
 @pytest.fixture
@@ -515,3 +518,86 @@ def test_profiling_helpers_on_card(cuda):
     with profiling.device_trace() as prof:
         x.sort()
     assert sum(e.self_device_time_total for e in prof.key_averages()) > 0
+
+
+_IRREGULAR_TABLES = ("top_res_log", "top_offset", "entries", "cell_min",
+                     "cell_max", "cell_starts", "ref_ids", "alive",
+                     "preexpanded", "top_info", "erec", "num_entries",
+                     "total_refs", "ref_tris")
+
+
+def _soup(seed, device):
+    v, f = scenes.random_soup(150, seed=seed)
+    return Triangles.from_mesh(v, f, device=device)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("params", [BuildParams(), BuildParams.dynamic(),
+                                    BuildParams(merge_passes=0,
+                                                expansion_passes=0)],
+                         ids=["default", "dynamic", "nomerge"])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_irregular_build_on_card_equals_cpu(cuda, seed, params):
+    on = irregular.build_irregular(_soup(seed, cuda), params)
+    off = irregular.build_irregular(_soup(seed, "cpu"), params)
+    assert on.top_dims == off.top_dims and on.levels == off.levels
+    for k in _IRREGULAR_TABLES:
+        assert torch.equal(getattr(on, k).cpu(), getattr(off, k)), k
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("seed", [0, 1])
+def test_uniform_build_on_card_equals_cpu(cuda, seed):
+    on = uniform.build_uniform(_soup(seed, cuda))
+    off = uniform.build_uniform(_soup(seed, "cpu"))
+    assert on.dims == off.dims
+    for k in ("cell_starts", "ref_ids", "total_refs"):
+        assert torch.equal(getattr(on, k).cpu(), getattr(off, k)), k
+
+
+@pytest.mark.gpu
+def test_res_demand_on_card_equals_cpu(cuda):
+    n = torch.arange(0, (1 << 16) + 1, dtype=torch.int32)
+    for snd in (2.0, 2.4):
+        assert torch.equal(irregular.res_demand(n.to(cuda), snd, 8).cpu(),
+                           irregular.res_demand(n, snd, 8))
+
+
+def _grid_to(grid, device):
+    import dataclasses
+    fields = {f.name: getattr(grid, f.name) for f in dataclasses.fields(grid)}
+    out = {k: v.to(device) if torch.is_tensor(v) else v
+           for k, v in fields.items()}
+    out["tris"] = Triangles(*(getattr(grid.tris, k).to(device)
+                              for k in ("v0", "e1", "e2", "n")))
+    return type(grid)(**out)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("any_hit", [False, True])
+@pytest.mark.parametrize("structure", ["irregular", "uniform"])
+def test_wavefront_on_card_matches_cpu(cuda, structure, any_hit):
+    """One CPU-built grid, traced on the card and on the CPU: hit/miss
+    equal, ids equal on > 99.5% of common hits, t to rtol 1e-5."""
+    v, f = scenes.cornell_box()
+    off = Triangles.from_mesh(v, f, device="cpu")
+    if structure == "irregular":
+        g = irregular.build_irregular(off)
+        trace = irregular.trace_irregular_fast
+    else:
+        g = uniform.build_uniform(off)
+        trace = uniform.trace_uniform_fast
+    rays = primary_rays(scenes.cornell_camera(), 64, 64, order="block",
+                        device="cpu")
+    want = trace(g, rays, any_hit=any_hit)
+    rays_c = type(rays)(*(getattr(rays, k).to(cuda)
+                          for k in ("org", "dir", "tmin", "tmax")))
+    got = trace(_grid_to(g, cuda), rays_c, any_hit=any_hit)
+    got_hit, want_hit = got.tri_id.cpu() >= 0, want.tri_id >= 0
+    assert torch.equal(got_hit, want_hit)
+    if not any_hit:
+        both = got_hit & want_hit
+        same = both & (got.tri_id.cpu() == want.tri_id)
+        assert same.sum() > 0.995 * both.sum()
+        torch.testing.assert_close(got.t.cpu()[same], want.t[same],
+                                   rtol=1e-5, atol=1e-6)

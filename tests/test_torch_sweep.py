@@ -292,7 +292,7 @@ def test_render_session_cornell(cornell):
     assert not s.poll_overflow(recalibrate=False)
     assert "packet" in s.describe()
     with pytest.raises(ValueError):
-        RenderSession.create(tris, structure="irregular")
+        RenderSession.create(tris, structure="bvh")
 
 
 def _eyelight_dhash(tri_id, tris_n, dirs, pix, size):
