@@ -71,6 +71,26 @@ Phases, one line each (any failure exits non-zero before the result):
    equal the CPU builds'. With --profile, phase 6 adds the irregular
    primary frame and AO wave. One JSON line {"structures": ...} carries
    the numbers.
+13. the packet grid's options at full width on the Sponza-scale scene:
+   build_packet(refine=True) and (adaptive=True), cold and 3 warm
+   rebuilds (refs against the default grid, rows refined by 2 and 4,
+   device memory, check_packet on 256 sampled tris); with the launch
+   counts from zero, a 1024x1024 coherent primary frame on each (K2:
+   round-0 demand against the default grid's, 4096 sampled rays against
+   the oracle, every hit against the default grid's), AO wave 0 on the
+   refined grid (K3), and AO wave 0 (K3) and path bounce 1 (K2) with
+   fine_bins=False and True on the default grid (demand, host wall,
+   device busy and idle share); then the kernel against its plain
+   version on each of those round-0 streams; refined and adaptive tables
+   built on the card against the CPU's (sponza_like(2000), (20000)); the
+   scene written as an OBJ and read by the native and the Python parser
+   (equal arrays, times), load_scene(path) -> RenderSession -> a 1024x1024
+   frame; shard_trace over every card and over two shards of this one
+   (hits equal the unsharded frame), distributed's single-process
+   no-ops; last, `python -m hagrid_tpu_torch.cli render | stats | bench
+   --iters 3` for each structure at 256x256, nine processes at once
+   (exit codes, the PNG, bench's JSON keys). One JSON line
+   {"options": ...} carries the numbers.
 The last two lines are the kernels' JSON record and
 {"ok": true, "device": {...}}. Needs a CUDA device; imports no JAX.
 """
@@ -79,8 +99,10 @@ from __future__ import annotations
 
 import argparse
 import json
+import pathlib
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -92,17 +114,20 @@ from hagrid_tpu_torch.core.types import Triangles
 from hagrid_tpu_torch.exp import kernel_mt20, mxu_micro, sass
 from hagrid_tpu_torch.grid import invariants, irregular, uniform
 from hagrid_tpu_torch.grid.packet import build_packet, rays_to_x
+from hagrid_tpu_torch.io import obj
 from hagrid_tpu_torch.io.image import dhash, hamming, shade_eyelight
 from hagrid_tpu_torch.ops import _build, sortrays, wavefront
 from hagrid_tpu_torch.ops import micro_kernels as mk
 from hagrid_tpu_torch.ops import sweep_kernel as sk
 from hagrid_tpu_torch.ops.sweep_kernel import sweep_blocks, sweep_blocks_plain
-from hagrid_tpu_torch.ops.sweep_trace import _BIG_BITS, first_round_stream
+from hagrid_tpu_torch.ops.sweep_trace import (_BIG_BITS, first_round_stream,
+                                              trace_sweep)
+from hagrid_tpu_torch.parallel import distributed, mesh
 from hagrid_tpu_torch.render import integrators
 from hagrid_tpu_torch.render.dynamic import AnimatedScene
 from hagrid_tpu_torch.render.sampling import (cosine_hemisphere,
                                               hit_points_normals)
-from hagrid_tpu_torch.render.session import RenderSession
+from hagrid_tpu_torch.render.session import RenderSession, _rung
 from hagrid_tpu_torch.utils.config import BuildParams
 
 # tests/test_golden.py pins this dhash for the 128x128 Sponza eye-light
@@ -164,6 +189,18 @@ IRREGULAR_TABLES = ("top_res_log", "top_offset", "entries", "cell_min",
                     "preexpanded", "top_info", "erec", "num_entries",
                     "total_refs")
 UNIFORM_TABLES = ("cell_starts", "ref_ids", "total_refs")
+# Phase 13: warm rebuilds per option grid, check_packet's tri sample, the
+# scenes whose option tables the card must share with the CPU, the
+# calibration probes' budgets (blocks by coherence, live rows), the CLI's
+# image size (smaller than the frame: nine processes share the card) and
+# its time limit.
+OPT_WARM = 3
+OPT_CHECK_SAMPLE = 256
+OPT_TABLE_SCENES = (2000, 20000)
+OPT_PROBE_BMAX = {True: 1 << 15, False: 1 << 19}
+OPT_PROBE_ROWMAX = 1 << 22
+OPT_CLI_SIZE = "256x256"
+OPT_CLI_TIMEOUT = 400
 DEV = "cuda"
 
 
@@ -537,6 +574,8 @@ def profile(what, fn, card, path, runs=3):
             out.write(f"# {what}, {card}: device ms per call, calls per "
                       f"call, op\n")
             out.writelines(f"{ms:.4f}\t{n}\t{k}\n" for ms, n, k in ops)
+    return dict(wall_ms=walls, busy_ms=busy,
+                idle_share=max(0.0, 1 - busy / wall))
 
 
 def anyhit_phase(session, rays, hits, tris, card, with_variants):
@@ -712,7 +751,7 @@ def path_bounce_stream(session, b1, card, with_variants):
     if with_variants:
         variants("closest-hit sweep, path bounce 1 round 0", args, False,
                  card)
-    return dict(err=err, ms=ms, plain_ms=plain_ms, bound=b)
+    return dict(err=err, ms=ms, plain_ms=plain_ms, bound=b, b1=b1)
 
 
 def dynamic_phase(v, f, rays, card):
@@ -932,6 +971,356 @@ def structures_phase(v, tris, rays, card):
     print(f"[structures] phase 12 took {rec['phase_s']:.1f} s", flush=True)
     print(json.dumps({"structures": rec}), flush=True)
     return s_irr, wave
+
+
+def hits_against(name, hits, ref):
+    """Every ray of a wave against another grid's hits of the same rays,
+    with tests/test_sweep_trace.py::_check's thresholds."""
+    got_hit, ref_hit = hits.tri_id >= 0, ref.tri_id >= 0
+    t_ok = torch.isclose(hits.t, ref.t, rtol=1e-3, atol=1e-5)
+    agree = float(((got_hit == ref_hit) & (~ref_hit | t_ok)).float().mean())
+    both = got_hit & ref_hit
+    id_rate = float((hits.tri_id[both] == ref.tri_id[both]).float().mean())
+    print(f"[options] {name}: {hits.tri_id.numel()} rays, hit/miss+t "
+          f"agreement {agree:.6f}, id agreement {id_rate:.6f}", flush=True)
+    check(agree > 0.999, f"{name}: hits disagree")
+    check(id_rate > 0.995, f"{name}: tri ids disagree")
+    return dict(agree=agree, id_rate=id_rate)
+
+
+def calibrate(grid, rays, any_hit, coherent, fine_bins=False):
+    """(bmax, rowmax, peak round block demand, peak live rows) of a wave:
+    one probe at a generous budget (doubled until it completes), then the
+    budgets RenderSession._calibrate would set (demand x margin on the
+    rung ladders), kept only if the wave completes under them."""
+    bmax = OPT_PROBE_BMAX[coherent]
+    rowmax = None if coherent else OPT_PROBE_ROWMAX
+    kw = dict(any_hit=any_hit, coherent=coherent, fine_bins=fine_bins,
+              return_overflow=True)
+    for _ in range(4):
+        _, ovf, dem = trace_sweep(grid, rays, bmax=bmax, rowmax=rowmax,
+                                  return_demand=True, **kw)
+        if not bool(ovf):
+            break
+        bmax, rowmax = bmax * 2, rowmax and rowmax * 2
+    check(not bool(ovf), "the calibration probe overflowed")
+    d, rows = (int(x) for x in dem.tolist())
+    margin = 1.3 if (coherent and not any_hit) else 1.5
+    b = _rung(int(d * margin), 1024)
+    r = _rung(int(rows * margin), 8192) if rows else None
+    if bool(trace_sweep(grid, rays, bmax=b, rowmax=r, **kw)[1]):
+        b, r = bmax, rowmax
+    return b, r, d, rows
+
+
+def kernel_vs_plain(name, cols, stream, any_hit, rows=None):
+    """The sweep kernel against its plain version on one round-0 stream
+    (not counted as a main-path launch): ids, t or any-hit genuineness,
+    the kernel's ms over 10 calls, the plain version's over one, and the
+    stream's bound."""
+    xt, gidx, tile_of, tminb, tile = stream
+    args = (xt, cols, gidx, tile_of, tminb, tile)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    ref = sweep_blocks_plain(*args, any_hit=any_hit)
+    end.record()
+    torch.cuda.synchronize()
+    plain_ms = start.elapsed_time(end)
+    got = sweep_blocks(*args, any_hit=any_hit)
+    if any_hit:
+        err = compare_anyhit(name, got, ref, args, rows)
+    else:
+        err = compare_sweeps(name, got, ref, tile_of, tile)
+    ms = cuda_ms(lambda: sweep_blocks(*args, any_hit=any_hit), iters=10)
+    b = bound(args, any_hit, name)
+    print(f"[options] {name}: {b['live_blocks']} blocks, kernel {ms:.3f} "
+          f"ms, plain {plain_ms:.3f} ms, bound {b['bound_ms']:.3f} ms",
+          flush=True)
+    return dict(blocks=b["live_blocks"], ms=ms, plain_ms=plain_ms,
+                bound_ms=b["bound_ms"], bound_by=b["bound_by"],
+                max_abs_err=err)
+
+
+def option_grid(name, tris, bbox, kw, base, card):
+    """Cold build, OPT_WARM warm rebuilds at the cold grid's dims and
+    capacity (equal tables), refs against the default grid, the shares
+    of rows refined by 2 and 4, device memory and check_packet on a
+    sample."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base_mem = torch.cuda.memory_allocated()
+    (cold,), (cold_ms,), g = wall_and_device_ms(
+        lambda: build_packet(tris, **kw), 1)
+    mem = dict(grid_mb=(torch.cuda.memory_allocated() - base_mem) / 2**20,
+               build_peak_mb=(torch.cuda.max_memory_allocated() - base_mem)
+               / 2**20)
+    walls, devs, w = wall_and_device_ms(lambda: build_packet(
+        tris, bbox=bbox, ref_capacity=g.ref_capacity, dims3=g.dims3,
+        check=False, **kw), OPT_WARM)
+    check(not bool(w.overflowed), f"{name}: warm rebuild overflowed")
+    check(all(torch.equal(getattr(w, k), getattr(g, k))
+              for k in ("rs", "rowinfo", "planes")),
+          f"{name}: the warm rebuild's tables differ from the cold build's")
+    lgm = g.rowinfo >> 28
+    refs, refs0 = int(g.total_refs), int(base.total_refs)
+    t0 = time.perf_counter()
+    invariants.check_packet(g, sample_tris=OPT_CHECK_SAMPLE)
+    check_s = time.perf_counter() - t0
+    r = dict(cold_wall_ms=cold, cold_ms=cold_ms, warm_wall_ms=walls,
+             warm_ms=devs, dims3=g.dims3, ref_capacity=g.ref_capacity,
+             refs=refs, refs_default=refs0, refs_ratio=refs / refs0,
+             rows_m2=float((lgm == 1).float().mean()),
+             rows_m4=float((lgm == 2).float().mean()),
+             check_packet_s=check_s, **mem)
+    print(f"[options] build_packet({', '.join(f'{k}=True' for k in kw)}): "
+          f"cold {cold:.1f} ms host wall, {cold_ms:.1f} ms between CUDA "
+          f"events; warm x{OPT_WARM} {span(walls)} ms host wall, "
+          f"{span(devs)} ms between events ({card}); refs {refs} against "
+          f"the default grid's {refs0} (x{refs / refs0:.3f}), capacity "
+          f"{g.ref_capacity}; rows refined by 2: {r['rows_m2']:.4f}, by 4: "
+          f"{r['rows_m4']:.4f}; device memory {mem}; check_packet on "
+          f"{OPT_CHECK_SAMPLE} sampled tris passed in {check_s:.2f} s",
+          flush=True)
+    return g, r
+
+
+def cli_runs(tmp):
+    """`python -m hagrid_tpu_torch.cli render | stats | bench` for each
+    structure on the card, all nine started together, at OPT_CLI_SIZE on
+    the Sponza-like scene. Only exit codes and outputs are checked: the
+    nine share the card and the host, so their times are no measurement."""
+    procs = {}
+    for st in ("packet", "irregular", "uniform"):
+        out = f"{tmp}/cli_{st}.png"
+        for cmd, extra in (("render", ["--out", out]), ("stats", []),
+                           ("bench", ["--iters", "3"])):
+            procs[(st, cmd)] = subprocess.Popen(
+                [sys.executable, "-m", "hagrid_tpu_torch.cli", cmd,
+                 "--scene", "sponza", "--size", OPT_CLI_SIZE,
+                 "--structure", st, *extra], stdout=subprocess.PIPE,
+                stderr=subprocess.PIPE, text=True)
+    res = {}
+    try:
+        for key, p in procs.items():
+            stdout, stderr = p.communicate(timeout=OPT_CLI_TIMEOUT)
+            last = stdout.strip().splitlines()[-1] if stdout.strip() else ""
+            res[key] = (p.returncode, last, stderr.strip()[-2000:])
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    rec = {}
+    for (st, cmd), (rc, last, err) in res.items():
+        print(f"[cli] {cmd} --structure {st}: exit {rc}; {last}", flush=True)
+        check(rc == 0, f"cli {cmd} --structure {st} failed: {err}")
+        if cmd == "render":
+            check(pathlib.Path(f"{tmp}/cli_{st}.png").stat().st_size > 0,
+                  f"cli render --structure {st} wrote no PNG")
+        if cmd == "bench":
+            b = json.loads(last)
+            check({"build_ms", "mrays_per_s", "grid", "device"} <= set(b),
+                  f"cli bench --structure {st}: keys missing")
+        rec[f"{cmd}_{st}"] = rc
+    return rec
+
+
+def options_phase(v, f, tris, rays, hits, grid, session, wave, b1, card):
+    """Phase 13: the packet grid's options (per-row refinement, adaptive
+    slice planes, fine ray bins) through K2 and K3 at full size, their
+    tables on the card against the CPU's, the OBJ loader, sharding and
+    the CLI. Returns (record, K2 and K3 launches of the phase's entry
+    point runs)."""
+    rec = {"card": card}
+    t_phase = time.perf_counter()
+    bbox = session.bbox
+    g_ref, rec["refine"] = option_grid("refine", tris, bbox,
+                                       dict(refine=True), grid, card)
+    g_ada, rec["adaptive"] = option_grid("adaptive", tris, bbox,
+                                         dict(adaptive=True), grid, card)
+    option_grids = (("refine", g_ref), ("adaptive", g_ada))
+
+    # The phase's main path, through trace_sweep and trace_sorted's sort,
+    # every count from zero.
+    reset_launches()
+    budgets = {}
+    b0, _, d0, _ = calibrate(grid, rays, False, True)
+    budgets["primary_default"] = (b0, None)
+    for name, g in option_grids:
+        b, _, d, _ = calibrate(g, rays, False, True)
+        budgets[f"primary_{name}"] = (b, None)
+        walls, devs, h = wall_and_device_ms(
+            lambda: trace_sweep(g, rays, coherent=True, bmax=b), 3)
+        print(f"[options] primary 1024x1024 on the {name} grid: round-0 "
+              f"demand {d} blocks against the default grid's {d0}; budget "
+              f"{b}; host wall {span(walls)} ms, {span(devs)} ms between "
+              f"CUDA events = {span([rays.count / ms / 1e3 for ms in devs])}"
+              f" Mrays/s ({card})", flush=True)
+        check_closest_sample(f"primary on the {name} grid", rays, h, tris)
+        rec[name]["primary"] = dict(
+            demand=d, demand_default=d0, bmax=b, wall_ms=walls, ms=devs,
+            **hits_against(f"primary on the {name} grid against the "
+                           f"default grid", h, hits))
+    srt, perm = sortrays.sort_rays(wave, grid.bbox_lo, grid.bbox_hi,
+                                   bits=10, origin_major=True)
+    b1s, _ = sortrays.sort_rays(b1, grid.bbox_lo, grid.bbox_hi, bits=10,
+                                origin_major=True)
+    b, r, d, rows = calibrate(g_ref, srt, True, False)
+    _, _, d_def, rows_def = calibrate(grid, srt, True, False)
+    budgets["ao_refine"] = (b, r)
+    walls, devs, h = wall_and_device_ms(lambda: trace_sweep(
+        g_ref, srt, any_hit=True, bmax=b, rowmax=r), 2)
+    check_anyhit_sample("AO wave 0 on the refined grid", wave,
+                        sortrays.unsort(h, perm), tris)
+    print(f"[options] AO wave 0 ({srt.count} rays) on the refined grid: "
+          f"peak demand {d} blocks, {rows} rows against the default grid's "
+          f"{d_def}, {rows_def}; budgets ({b}, {r}); host wall {span(walls)}"
+          f" ms, {span(devs)} ms between CUDA events ({card})", flush=True)
+    rec["refine"]["ao_wave"] = dict(demand=d, rows=rows, demand_default=d_def,
+                                    rows_default=rows_def, wall_ms=walls,
+                                    ms=devs)
+    fine = {}
+    for name, w, any_hit in (("ao_wave", srt, True),
+                             ("path_bounce1", b1s, False)):
+        for fb in (False, True):
+            b, r, d, rows = calibrate(grid, w, any_hit, False, fb)
+            budgets[f"{name}_fine{int(fb)}"] = (b, r)
+            fn = (lambda w=w, any_hit=any_hit, fb=fb, b=b, r=r: trace_sweep(
+                grid, w, any_hit=any_hit, fine_bins=fb, bmax=b, rowmax=r))
+            prof = profile(f"{name} fine_bins={fb}", fn, card, None, runs=2)
+            h = fn()
+            if any_hit:
+                check_anyhit_sample(f"{name} fine_bins={fb}", wave,
+                                    sortrays.unsort(h, perm), tris)
+            else:
+                check_closest_sample(f"{name} fine_bins={fb}", w, h, tris)
+            fine[f"{name}_fine{int(fb)}"] = dict(demand=d, rows=rows,
+                                                 bmax=b, rowmax=r, **prof)
+            print(f"[options] {name} fine_bins={fb}: peak demand {d} "
+                  f"blocks, {rows} rows; budgets ({b}, {r})", flush=True)
+    rec["fine_bins"] = fine
+    torch.cuda.synchronize()
+    launches = dict(sk.launches)
+    print(f"[options] kernel launches of the phase's entry point runs: "
+          f"{launches}", flush=True)
+    check(launches["sweep_blocks"] > 0 and launches["sweep_blocks_anyhit"]
+          > 0, "phase 13 did not launch both sweep instances")
+
+    # The kernel against its plain version on the new streams.
+    rows_t = tri_rows(grid.cols, tris.count)
+    streams = {}
+    for name, g in option_grids:
+        streams[f"primary_{name}"] = kernel_vs_plain(
+            f"K2, primary round 0 on the {name} grid", g.cols,
+            first_round_stream(g, rays, tile=TILE,
+                               bmax=budgets[f"primary_{name}"][0]), False)
+    b, r = budgets["ao_refine"]
+    streams["ao_refine"] = kernel_vs_plain(
+        "K3, AO wave 0 round 0 on the refined grid", g_ref.cols,
+        first_round_stream(g_ref, srt, any_hit=True, coherent=False, bmax=b,
+                           rowmax=r), True, tri_rows(g_ref.cols, tris.count))
+    b, r = budgets["ao_wave_fine1"]
+    streams["ao_fine"] = kernel_vs_plain(
+        "K3, AO wave 0 round 0 with fine bins", grid.cols,
+        first_round_stream(grid, srt, any_hit=True, coherent=False, bmax=b,
+                           rowmax=r, fine_bins=True), True, rows_t)
+    b, r = budgets["path_bounce1_fine1"]
+    streams["path_fine"] = kernel_vs_plain(
+        "K2, path bounce 1 round 0 with fine bins", grid.cols,
+        first_round_stream(grid, b1s, coherent=False, bmax=b, rowmax=r,
+                           fine_bins=True), False)
+    rec["streams"] = streams
+    del g_ada
+
+    # Tables built on the card against the CPU's.
+    tables = {}
+    for n in OPT_TABLE_SCENES:
+        sv, sf = scenes.sponza_like(n)
+        on_t = Triangles.from_mesh(sv, sf, device=DEV)
+        off_t = Triangles.from_mesh(sv, sf, device="cpu")
+        for kw in (dict(refine=True), dict(adaptive=True)):
+            on, off = build_packet(on_t, **kw), build_packet(off_t, **kw)
+            bad = tables_equal(on, off, ("rs", "rowinfo", "planes",
+                                         "total_refs", "total_pairs"))
+            cols = on.cols.cpu()
+            if not torch.equal(cols[:, 16::20], off.cols[:, 16::20]) or \
+                    not torch.allclose(cols, off.cols, rtol=1e-6, atol=1e-6):
+                bad.append("cols")
+            key = f"sponza{n}_{next(iter(kw))}"
+            tables[key] = not bad
+            print(f"[options] {key}: tables on the card against the CPU: "
+                  f"{'equal' if not bad else f'differ in {bad}'}", flush=True)
+            check(not bad, f"{key}: the card's tables differ from the CPU's")
+    rec["card_equals_cpu"] = tables
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # OBJ: write the scene, parse it natively and in Python.
+        path = f"{tmp}/sponza_like.obj"
+        t0 = time.perf_counter()
+        obj.save_obj(path, v, f)
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        nv, nf = obj.load_obj(path)
+        native_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        pv, pf = obj.load_obj_python(path)
+        python_s = time.perf_counter() - t0
+        same = (np.array_equal(nv, pv) and np.array_equal(nf, pf)
+                and np.array_equal(nv, v) and np.array_equal(nf, f))
+        lv, lf, lcam = scenes.load_scene(path)
+        s_obj = RenderSession.create(Triangles.from_mesh(lv, lf, device=DEV),
+                                     verts=lv)
+        orays = primary_rays(lcam, 1024, 1024, order="block", device=DEV)
+        oh = s_obj.trace(orays, coherent=True)
+        check_closest_sample("OBJ scene primary", orays, oh, s_obj.grid.tris)
+        ofrac = float((oh.tri_id >= 0).float().mean())
+        rec["obj"] = dict(bytes=pathlib.Path(path).stat().st_size,
+                          save_s=save_s, native_s=native_s,
+                          python_s=python_s, arrays_equal=same,
+                          hit_fraction=ofrac)
+        print(f"[obj] {rec['obj']['bytes']} bytes; save_obj {save_s:.2f} s,"
+              f" native parser {native_s:.3f} s (build included), Python "
+              f"parser {python_s:.2f} s; arrays equal: {same}; load_scene "
+              f"-> RenderSession -> 1024x1024 frame, hit fraction "
+              f"{ofrac:.4f}", flush=True)
+        check(same, "the native and Python OBJ parsers disagree")
+        check(0.0 < ofrac <= 1.0, "the OBJ scene's frame hit nothing")
+        del s_obj, oh
+
+        # Sharding: every card, and two shards of this one.
+        def fn(g, r):
+            return trace_sweep(g, r, coherent=True, bmax=b0)
+
+        want = fn(grid, rays)
+        shard = {}
+        for mname, m in (("all_cards", mesh.make_mesh()),
+                         ("two_shards", mesh.make_mesh(2, devices=DEV))):
+            padded, n = mesh.pad_rays(rays, len(m) * TILE)
+            parts = mesh.shard_trace(fn, m)(grid, padded)
+            got = mesh.gather(parts, device=DEV, n=n)
+            eq = (torch.equal(got.tri_id, want.tri_id)
+                  and torch.equal(got.t, want.t))
+            shard[mname] = dict(devices=[str(d) for d in m], equal=eq)
+            print(f"[shard] shard_trace over {[str(d) for d in m]}: hits "
+                  f"equal the unsharded frame: {eq}", flush=True)
+            check(eq, f"sharded frame ({mname}) differs")
+        distributed.initialize(world_size=1)
+        gm = distributed.global_mesh()
+        shard["global_mesh"] = [str(d) for d in gm]
+        check(distributed.process_count() == 1 and gm[0].type == "cuda",
+              "distributed single-process set-up is not a no-op")
+        rec["sharding"] = shard
+
+        # The CLI as a user runs it, last: its nine processes share the card.
+        t0 = time.perf_counter()
+        rec["cli"] = cli_runs(tmp)
+        rec["cli_s"] = time.perf_counter() - t0
+    rec["phase_s"] = time.perf_counter() - t_phase
+    print(f"[options] phase 13 took {rec['phase_s']:.1f} s (CLI "
+          f"{rec['cli_s']:.1f} s)", flush=True)
+    print(json.dumps({"options": rec}), flush=True)
+    return rec, launches
 
 
 def max_diff(got, want):
@@ -1317,6 +1706,14 @@ def main(profile_path=False, with_variants=False) -> int:
     # 12. the paper's structures: irregular and uniform grids, wavefront
     s_irr, irr_wave = structures_phase(v, tris, rays, card)
 
+    # 13. the packet grid's options, the OBJ loader, sharding, the CLI
+    opts, opt_launches = options_phase(v, f, tris, rays, hits, grid, session,
+                                       ao["wave"], path["b1"], card)
+    opt_err = {k: max(opts["streams"][s]["max_abs_err"] for s in names)
+               for k, names in (("k2", ("primary_refine", "primary_adaptive",
+                                        "path_fine")),
+                                ("k3", ("ao_refine", "ao_fine")))}
+
     # 6. optional device-time breakdown, run last
     if profile_path is not False:
         for what, fn in (("frame", lambda: session.trace(rays, coherent=True)),
@@ -1338,12 +1735,14 @@ def main(profile_path=False, with_variants=False) -> int:
     # same kernel called K1's way in phase 3, which the main path never
     # makes. launches: the main path's count (phase 4 for closest hit,
     # phase 8 for any hit, phase 11's records for K4-K7); the dynamic
-    # frames' sweep launches ride on the closest-hit entry. No single
+    # frames' sweep launches ride on the closest-hit entry, phase 13's
+    # (option grids, fine bins) on both sweep entries. No single
     # PyTorch call computes the sweep: library_ms is null.
     kernels = [
         dict(name="sweep_blocks", route="cuda", source=KERNEL_SOURCE,
              replaces=REPLACES, launches=launches,
-             max_abs_err=max(err, err1, err_r, path["err"]), ms=ms,
+             max_abs_err=max(err, err1, err_r, path["err"], opt_err["k2"]),
+             ms=ms,
              plain_ms=plain_ms,
              bound_ms=bound_k12["bound_ms"], bound_by=bound_k12["bound_by"],
              library_ms=None, blocks_skipped=bound_k12["blocks_skipped"],
@@ -1351,13 +1750,16 @@ def main(profile_path=False, with_variants=False) -> int:
              ms_pregathered=ms1, plain_ms_pregathered=plain_ms1,
              launches_dynamic=dyn["launches"],
              launches_path=slice_launches["path_trace"],
+             launches_options=opt_launches["sweep_blocks"],
              ms_incoherent=path["ms"], plain_ms_incoherent=path["plain_ms"],
              bound_ms_incoherent=path["bound"]["bound_ms"],
              blocks_skipped_incoherent=path["bound"]["blocks_skipped"]),
         dict(name="sweep_blocks_anyhit", route="cuda", source=KERNEL_SOURCE,
              replaces=REPLACES_ANYHIT,
              launches=slice_launches["sweep_blocks_anyhit"],
-             max_abs_err=ao["err"], ms=ao["ms"], plain_ms=ao["plain_ms"],
+             launches_options=opt_launches["sweep_blocks_anyhit"],
+             max_abs_err=max(ao["err"], opt_err["k3"]), ms=ao["ms"],
+             plain_ms=ao["plain_ms"],
              bound_ms=ao["bound"]["bound_ms"],
              bound_by=ao["bound"]["bound_by"], library_ms=None,
              blocks_skipped=ao["bound"]["blocks_skipped"],

@@ -1,5 +1,6 @@
 """Packet grid: slice-major acceleration structure for the sweep tracer
-(port of hagrid_tpu/grid/packet.py, uniform `refine=False` build).
+(port of hagrid_tpu/grid/packet.py, with its two options: adaptive slice
+planes and per-row column refinement).
 
 Per major axis a, with (b, c) = ((a+1)%3, (a+2)%3), cells are laid out
 slice-major, (va * Db + vb) * Dc + vc with c fastest, so a rect row of
@@ -9,8 +10,10 @@ bit-for-bit in the reference's layout so both tracers can read one grid:
 - `rs` i32: per (row, c) the absolute index (into the flat ref order) of
   the row's first ref at column >= c; a frustum rect's refs in a row are
   [rs[off + c0], rs[off + c1 + 1]) with `off` from `rowinfo`.
-- `rowinfo` i32[sum_a Da*Db]: per row (rs offset | log2(m) << 28); the
-  uniform build has m = 1.
+- `rowinfo` i32[sum_a Da*Db]: per row (rs offset | log2(m) << 28). The
+  default build has m = 1 and dc + 1 entries a row; refine=True splits a
+  dense row's columns by m in {2, 4} (ragged rows of m * dc + 1 entries;
+  refs straddling a fine column boundary duplicate).
 - `cols` f32[3*R_cap/6 + 8, 128]: group rows of 6 per-ref precomputed
   rows of 20 floats (120 lanes + 8 zero pad lanes):
   [n(3) -e2(3) -(v0 x e2)(3) e1(3) (v0 x e1)(3) v0.n tri_id 0 0 0].
@@ -29,8 +32,8 @@ import numpy as np
 import torch
 
 from ..core.types import Triangles, cross
-from ..ops.segment import (add_at_drop, cumsum_i32, segment_starts,
-                           sort_pairs)
+from ..ops.segment import (add_at_drop, cumsum_i32, expand_by_counts,
+                           segment_starts, sort_pairs, trunc_i32)
 from ..utils.config import density_dims
 from .uniform import tri_box_overlap, tri_voxel_ranges
 
@@ -40,6 +43,7 @@ GROUP_LANES = 128  # 6*20 = 120 real lanes + 8 zero pad
 DEAD_ROWS = 8      # trailing zero group rows (48 refs), the dead gather target
 BIG = 3e38         # finite stand-in for +inf throughout the pipeline
 MAX_TRIS = 1 << 24  # ids ride in f32 rows as exact float values
+_PLANE_BINS = 256  # centroid histogram of the adaptive slice planes
 
 
 @dataclasses.dataclass
@@ -66,6 +70,10 @@ class PacketGrid:
         with check=False); hits may then be missed."""
         return self.total_pairs > self.ref_capacity
 
+    @property
+    def num_cells(self) -> int:
+        return int(np.prod(self.dims3[0]))
+
 
 def rays_to_x(org, dir, tmin, tmax) -> torch.Tensor:
     """Pack rays into the tracer's X matrix, f32[N, 16]: [0]=1,
@@ -83,28 +91,68 @@ def _axis_order(axis: int):
     return axis, (axis + 1) % 3, (axis + 2) % 3
 
 
-def _slice_planes(bbox_lo, bbox_hi, dims3):
-    """Uniform per-layout slice boundaries f32[3, max(Da)+1], each row
-    padded by repeating its last boundary.
+def _slice_planes(tlo3, thi3, bbox_lo, bbox_hi, dims3, adaptive=False):
+    """Per-layout slice boundaries f32[3, max(Da)+1], each row padded by
+    repeating its last boundary.
 
-    lo + ((hi - lo) * k) * f32(1/da), rounded once: this is how the
-    compiled reference evaluates `lo + (hi - lo) * k / da` (XLA turns the
-    division by a constant into a reciprocal multiply and fuses the add
-    into an FMA). Tris whose vertices sit exactly on a plane bin by it,
-    so a one-ulp plane difference would move them to another slice."""
+    Uniform planes: lo + ((hi - lo) * k) * f32(1/da), rounded once: this
+    is how the compiled reference evaluates `lo + (hi - lo) * k / da`
+    (XLA turns the division by a constant into a reciprocal multiply and
+    fuses the add into an FMA). Tris whose vertices sit exactly on a
+    plane bin by it, so a one-ulp plane difference would move them to
+    another slice.
+
+    adaptive=True (layouts with da > 1): a 256-bin histogram of the tri
+    bbox centroids along the axis, its CDF, equal-mass quantiles blended
+    3:1 with the uniform planes (which keeps them strictly increasing
+    when all mass lands in one bin), endpoints pinned to the bbox. The
+    steps the compiled reference fuses are replayed the same way (f64,
+    one rounding): the targets' division by da as a reciprocal multiply,
+    `targets - c_lo` and the quantile's `lo + q * ext` as FMAs; the 3:1
+    blend is not fused (0.25 * uni is exact, so either order rounds
+    alike)."""
     pmax = max(d[0] for d in dims3) + 1
+    dev = bbox_lo.device
+    nb = _PLANE_BINS
     rows = []
     for axis in range(3):
         da = dims3[axis][0]
         lo_w, hi_w = bbox_lo[axis], bbox_hi[axis]
-        k = torch.arange(da + 1, dtype=torch.float32, device=bbox_lo.device)
-        scaled = ((hi_w - lo_w) * k).double()
-        row = (lo_w.double() + scaled * float(np.float32(1.0 / da))).float()
+        ext = hi_w - lo_w
+        rcp = float(np.float32(1.0 / da))
+        k = torch.arange(da + 1, dtype=torch.float32, device=dev)
+        uni = (lo_w.double() + (ext * k).double() * rcp).float()
+        if adaptive and da > 1:
+            centroid = 0.5 * (tlo3[:, axis] + thi3[:, axis])
+            cb = trunc_i32((centroid - lo_w) / ext * nb).clamp(0, nb - 1)
+            hist = torch.zeros((nb,), dtype=torch.float32, device=dev)
+            hist.index_add_(0, cb.long(), torch.ones_like(centroid))
+            cdf = torch.cumsum(hist, 0)  # integer-valued: exact
+            ks = torch.arange(1, da, dtype=torch.float32, device=dev)
+            nk = cdf[-1] * ks
+            targets = nk * rcp
+            idx = (cdf[None, :] < targets[:, None]).sum(1)
+            c_lo = torch.where(idx > 0, cdf[(idx - 1).clamp(min=0)], 0.0)
+            c_hi = cdf[idx.clamp(max=nb - 1)]
+            # targets - c_lo contracts into one FMA in the reference.
+            num = (nk.double() * rcp - c_lo.double()).float()
+            frac = torch.where(c_hi > c_lo,
+                               num / (c_hi - c_lo).clamp(min=1e-20), 0.5)
+            q = idx.to(torch.float32) + frac
+            # lo + q / nb * ext: XLA folds 1/nb into ext (exact), LLVM
+            # fuses the add.
+            pos = (lo_w.double()
+                   + q.double() * (ext * (1.0 / nb)).double()).float()
+            blend = 0.75 * pos + 0.25 * uni[1:-1]
+            row = torch.cat([lo_w[None], blend, hi_w[None]])
+        else:
+            row = uni
         rows.append(torch.cat([row, row[-1:].expand(pmax - da - 1)]))
     return torch.stack(rows)
 
 
-def _build(tris: Triangles, bbox_lo, bbox_hi, dims3, ref_capacity):
+def _build(tris: Triangles, bbox_lo, bbox_hi, dims3, ref_capacity,
+           adaptive=False, refine=False):
     """Bin tris into each layout's grid and emit (rs, rowinfo, cols,
     total_pairs, total_refs, planes)."""
     dev = tris.device
@@ -112,7 +160,7 @@ def _build(tris: Triangles, bbox_lo, bbox_hi, dims3, ref_capacity):
     n1 = max(tris.count, 1)
     i32 = dict(dtype=torch.int32, device=dev)
     tlo3, thi3 = tris.bounds()
-    planes = _slice_planes(bbox_lo, bbox_hi, dims3)
+    planes = _slice_planes(tlo3, thi3, bbox_lo, bbox_hi, dims3, adaptive)
     # One fused per-tri row [v0 e1 e2 id 0*6]: the per-layout ref tables
     # need one row gather each. Column 9 is the tri id as a float value.
     tri_t = torch.cat(
@@ -184,20 +232,32 @@ def _build(tris: Triangles, bbox_lo, bbox_hi, dims3, ref_capacity):
                               cell_lo, cell_hi)
         keep = valid & sat
         nrows = da * db
-        num_cells = nrows * dc
-        # One sort over cell keys; the rs table is a reshape of the
-        # segment starts, rowinfo describes m=1 rows of (dc+1) entries.
-        key = (v[:, a] * db + v[:, b]) * dc + v[:, c]
-        key = torch.where(keep, key, num_cells)
-        skeys, srefs = sort_pairs(key, torch.where(keep, tri_idx, 0))
-        starts = segment_starts(skeys, num_cells)       # i32[C+1]
-        live = j < starts[num_cells]
-        row_start = starts[::dc]                         # i32[nrows+1]
-        s_log = torch.cat([starts[:num_cells].reshape(nrows, dc),
-                           row_start[1:, None]], dim=1)  # i32[nrows, dc+1]
-        rs_parts.append((s_log + axis * cap).reshape(-1))
-        rowinfo_parts.append(torch.arange(nrows, **i32) * (dc + 1) + rs_base)
-        rs_base += nrows * (dc + 1)
+        if refine:
+            starts, srefs, rs_ax, ri_ax, n_ent, n_live, ftotal = _refine(
+                v, tvk, keep, tri_idx, csx, bbox_lo, a, b, c, da, db, dc,
+                cap)
+            rs_parts.append(rs_ax + axis * cap)
+            rowinfo_parts.append(ri_ax + rs_base)
+            rs_base += n_ent
+            total = torch.maximum(total, ftotal)
+        else:
+            # One sort over cell keys; the rs table is a reshape of the
+            # segment starts, rowinfo describes m=1 rows of (dc+1)
+            # entries.
+            num_cells = nrows * dc
+            key = (v[:, a] * db + v[:, b]) * dc + v[:, c]
+            key = torch.where(keep, key, num_cells)
+            skeys, srefs = sort_pairs(key, torch.where(keep, tri_idx, 0))
+            starts = segment_starts(skeys, num_cells)       # i32[C+1]
+            n_live = starts[num_cells]
+            row_start = starts[::dc]                         # i32[nrows+1]
+            s_log = torch.cat([starts[:num_cells].reshape(nrows, dc),
+                               row_start[1:, None]], dim=1)
+            rs_parts.append((s_log + axis * cap).reshape(-1))
+            rowinfo_parts.append(torch.arange(nrows, **i32) * (dc + 1)
+                                 + rs_base)
+            rs_base += nrows * (dc + 1)
+        live = j < n_live
 
         # Per-ref rows: one row gather, then the linear-form coefficients.
         tk = tri_t[srefs.long()]
@@ -212,12 +272,104 @@ def _build(tris: Triangles, bbox_lo, bbox_hi, dims3, ref_capacity):
         cols_parts.append(torch.nn.functional.pad(
             grp, (0, GROUP_LANES - MT_COLS * REF_GROUP)))
         totals.append(total)
-        reals.append(starts[num_cells])
+        reals.append(n_live)
     cols_parts.append(torch.zeros((DEAD_ROWS, GROUP_LANES),
                                   dtype=torch.float32, device=dev))
     return (torch.cat(rs_parts), torch.cat(rowinfo_parts),
             torch.cat(cols_parts), torch.stack(totals).max(),
             torch.stack(reals).max(), planes)
+
+
+def _refine(v, tvk, keep, tri_idx, csx, bbox_lo, a, b, c, da, db, dc, cap):
+    """Per-row column refinement of one layout (build_packet(refine=True)).
+
+    Each (slice, row) row splits its dc base columns by m in {1, 2, 4},
+    chosen by the row's post-SAT ref count: the densest nrows // 8 rows
+    by rank get m = 4, the next nrows // 4 m = 2 (a stable sort on the
+    count, ties to the lower row), gated on an absolute need (>= 2 dc
+    refs for m = 2, >= 6 dc for m = 4). A pair's fine columns are those
+    its tri's c-extent covers within its base cell (bbox-conservative;
+    the SAT prune stays at base resolution), so refs that straddle a fine
+    boundary duplicate. One sort over fine keys orders the refs; the rs
+    table is ragged, row r holding m_r * dc + 1 entries from row_off[r].
+
+    v, tvk, keep, tri_idx: the layout's pair slots (voxel, tri row, kept
+    after SAT, tri). Returns (starts, srefs, rs, rowinfo without the
+    layout's rs base, rs entries reserved, live refs, fine pair total)."""
+    dev = v.device
+    i32 = dict(dtype=torch.int32, device=dev)
+    nrows = da * db
+    rowk = torch.where(keep, v[:, a] * db + v[:, b], 0)
+    n4, n2 = nrows // 8, nrows // 4
+    rcnt = add_at_drop(nrows, rowk, keep.to(torch.int32))
+    _, order = sort_pairs(-rcnt, torch.arange(nrows, **i32))
+    rank_of = torch.empty((nrows,), **i32)
+    rank_of[order.long()] = torch.arange(nrows, **i32)
+    m_rank = torch.where(rank_of < n4, 4,
+                         torch.where(rank_of < n4 + n2, 2, 1))
+    m_need = torch.where(rcnt >= 6 * dc, 4, torch.where(rcnt >= 2 * dc, 2, 1))
+    m = torch.minimum(m_rank, m_need).to(torch.int32)
+    cells_cap = dc * (4 * n4 + 2 * n2 + (nrows - n4 - n2))
+    nc_row = m * dc
+    cell_off = cumsum_i32(nc_row) - nc_row
+
+    # Fine column span of each base pair from its tri's c-extent. icsf is
+    # a real division, as in the reference (not a reciprocal multiply).
+    mg = m[rowk.long()]
+    v0c = tvk[:, c]
+    c1v = v0c + tvk[:, 3 + c]
+    c2v = v0c + tvk[:, 6 + c]
+    tminc = torch.minimum(v0c, torch.minimum(c1v, c2v))
+    tmaxc = torch.maximum(v0c, torch.maximum(c1v, c2v))
+    icsf = mg.to(torch.float32) / csx[c]
+    base0 = v[:, c] * mg
+    top = base0 + mg - 1
+    f_lo = torch.minimum(torch.maximum(
+        trunc_i32((tminc - bbox_lo[c]) * icsf), base0), top)
+    f_hi = torch.minimum(torch.maximum(
+        trunc_i32((tmaxc - bbox_lo[c]) * icsf), f_lo), top)
+    fcnt = torch.where(keep, f_hi - f_lo + 1, 0)
+
+    # Expand base pairs into fine pairs; per-pair ints forward-fill by a
+    # delta scatter at the fine run starts and a prefix sum.
+    foffsets = cumsum_i32(fcnt) - fcnt
+    ftotal = foffsets[-1] + fcnt[-1]
+    _, rank2, valid2, _ = expand_by_counts(fcnt, cap)
+
+    def ff2(p):
+        d = torch.diff(p, prepend=torch.zeros((1,), **i32))
+        return cumsum_i32(add_at_drop(cap, foffsets, d))
+
+    fstart = cell_off[rowk.long()] + f_lo
+    fkey = torch.where(valid2, ff2(fstart) + rank2, cells_cap)
+    skeys, srefs = sort_pairs(fkey, ff2(tri_idx))
+    starts = segment_starts(skeys, cells_cap)          # i32[cells_cap+1]
+
+    # Ragged rs: row r's table occupies [row_off[r], row_off[r] +
+    # nc_row[r]], the closing entry equal to the next row's first start.
+    n_ent = cells_cap + nrows
+    row_off = cumsum_i32(nc_row + 1) - (nc_row + 1)
+    _, rank_r, valid_r, _ = expand_by_counts(nc_row + 1, n_ent)
+    d_co = torch.diff(cell_off, prepend=torch.zeros((1,), **i32))
+    co_ff = cumsum_i32(add_at_drop(n_ent, row_off, d_co))
+    cell_idx = (co_ff + rank_r).clamp(0, cells_cap)
+    rs = torch.where(valid_r, starts[cell_idx.long()], starts[cells_cap])
+    lg = torch.where(m == 4, 2, torch.where(m == 2, 1, 0)).to(torch.int32)
+    return (starts, srefs, rs, row_off | (lg << 28), n_ent,
+            starts[cells_cap], ftotal)
+
+
+def _rs_entries(dims3, refine: bool) -> int:
+    """Entries of the rs table: (dc + 1) a row, or with refinement the
+    reserve for the densest rows at m = 4 and the next at m = 2."""
+    if not refine:
+        return sum(da * db * (dc + 1) for (da, db, dc) in dims3)
+    total = 0
+    for da, db, dc in dims3:
+        nrows = da * db
+        n4, n2 = nrows // 8, nrows // 4
+        total += nrows + dc * (4 * n4 + 2 * n2 + nrows - n4 - n2)
+    return total
 
 
 def build_packet(tris: Triangles, cross_density: float = 0.4,
@@ -235,10 +387,6 @@ def build_packet(tris: Triangles, cross_density: float = 0.4,
     forces exact per-layout dims (per-frame rebuilds). Warm rebuilds pass
     `bbox` (host floats), the frame-1 `ref_capacity` and `check=False`:
     no host sync, overflow readable later via grid.overflowed."""
-    if adaptive or refine:
-        raise NotImplementedError(
-            "adaptive slice planes and per-row refinement are not ported "
-            "(both are off by default in the reference)")
     if tris.count >= MAX_TRIS:
         raise ValueError(
             f"packet grid carries tri ids as f32 values, exact only "
@@ -282,7 +430,7 @@ def build_packet(tris: Triangles, cross_density: float = 0.4,
         dims3 = tuple((dims[a], dims[(a + 1) % 3], dims[(a + 2) % 3])
                       for a in range(3))
     dims3 = tuple(tuple(int(x) for x in d) for d in dims3)
-    if sum(da * db * (dc + 1) for (da, db, dc) in dims3) >= (1 << 28):
+    if _rs_entries(dims3, refine) >= (1 << 28):
         raise ValueError("rs table too large for rowinfo's 28-bit "
                          "offsets; reduce grid dims")
     if ref_capacity is None:
@@ -294,7 +442,8 @@ def build_packet(tris: Triangles, cross_density: float = 0.4,
     bbox_hi = torch.as_tensor(hi, **f32)
     while True:
         rs, rowinfo, cols, pairs, total, planes = _build(
-            tris, bbox_lo, bbox_hi, dims3, ref_capacity)
+            tris, bbox_lo, bbox_hi, dims3, ref_capacity, adaptive=adaptive,
+            refine=refine)
         if not check:
             break
         t = int(pairs)

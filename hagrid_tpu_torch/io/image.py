@@ -1,4 +1,4 @@
-"""Image output and golden-image helpers (port of hagrid_tpu/io/image.py).
+"""Image output (PNG, PPM) and golden-image helpers (port of hagrid_tpu/io/image.py).
 
 numpy only; the same functions as the reference module, so hashes taken
 with either package compare directly.
@@ -36,6 +36,17 @@ def write_png(path: str, img: np.ndarray):
         fh.write(chunk(b"IHDR", ihdr))
         fh.write(chunk(b"IDAT", zlib.compress(raw, 6)))
         fh.write(chunk(b"IEND", b""))
+
+
+def write_ppm(path: str, img: np.ndarray):
+    """Binary PPM (P6): img u8[H,W,3] or f32[H,W,3] in [0,1]."""
+    img = np.asarray(img)
+    if img.dtype != np.uint8:
+        img = to_u8(img)
+    h, w, _ = img.shape
+    with open(path, "wb") as fh:
+        fh.write(f"P6\n{w} {h}\n255\n".encode())
+        fh.write(img.tobytes())
 
 
 def shade_eyelight(hits_tri, hits_t, tri_n, ray_dir, width, height):

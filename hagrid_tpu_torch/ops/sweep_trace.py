@@ -51,6 +51,7 @@ _UPB = UNITS_PER_BLOCK  # gather units per 768-ref block
 _IBIG = 1 << 20
 _BIG_BITS = int(np.float32(_BIG).view(np.int32))  # bit pattern of BIG
 _NGROUPS = 7    # (axis, sign) ray groups + 1 dead group
+_NGROUPS_FINE = 25  # (axis, sign, minor-sign quadrant) groups + 1 dead
 
 
 def _i32(x, device):
@@ -102,15 +103,18 @@ def _dead_row(device):
     return dead
 
 
-def _bin_rays(org, dir, tmin, tmax, n_pad, tile):
+def _bin_rays(org, dir, tmin, tmax, n_pad, tile, fine=False):
     """Group rays by (major axis, sign) into tile-aligned segments with a
     stable counting sort (masked cumsums, no device-wide sort); rays with
     tmax <= 0 go to a last, dead group so live tiles stay dense. Within a
     group the caller's order is kept (the origin-sorted order of a
-    secondary wave). Returns (xp_ext f32[n_pad + tile, 16], xt_ext = its
+    secondary wave). fine=True splits each (axis, sign) group by the
+    signs of the two minor direction components (24 live groups): a
+    quarter of the direction cone per tile, for waves with no origin
+    locality. Returns (xp_ext f32[n_pad + tile, 16], xt_ext = its
     transpose, inv i32[n_pad]: original ray of each row, -1 for padding);
-    n_pad must leave room for every group's padding, (ceil(n/tile) + 7) *
-    tile."""
+    n_pad must leave room for every group's padding, (ceil(n/tile) +
+    groups) * tile, groups being 7 (25 with fine)."""
     x = rays_to_x(org, dir, tmin, tmax)
     n = x.shape[0]
     dev = x.device
@@ -119,11 +123,17 @@ def _bin_rays(org, dir, tmin, tmax, n_pad, tile):
     axis = torch.where(ad[:, 0] >= torch.maximum(ad[:, 1], ad[:, 2]), 0,
                        torch.where(ad[:, 1] >= ad[:, 2], 1, 2))
     sign = (_along(d, axis[:, None], 1)[:, 0] < 0).to(torch.int32)
-    g = torch.where(x[:, 13] > 0, axis.to(torch.int32) * 2 + sign,
-                    _NGROUPS - 1)
+    glive = axis.to(torch.int32) * 2 + sign
+    ng = _NGROUPS
+    if fine:
+        d1 = _along(d, ((axis + 1) % 3)[:, None], 1)[:, 0]
+        d2 = _along(d, ((axis + 2) % 3)[:, None], 1)[:, 0]
+        sub = (d1 < 0).to(torch.int32) * 2 + (d2 < 0).to(torch.int32)
+        glive, ng = glive * 4 + sub, _NGROUPS_FINE
+    g = torch.where(x[:, 13] > 0, glive, ng - 1)
     ranks = torch.zeros((n,), dtype=torch.int32, device=dev)
     counts = []
-    for k in range(_NGROUPS):
+    for k in range(ng):
         mk = g == k
         ck = cumsum_i32(mk.to(torch.int32))
         ranks = torch.where(mk, ck - 1, ranks)
@@ -739,7 +749,7 @@ class _Frame:
     coherent), tables and per-tile precompute."""
 
     def __init__(self, grid: PacketGrid, rays: Rays, tile: int, n_pad: int,
-                 coherent: bool):
+                 coherent: bool, fine_bins: bool = False):
         self.tile = tile
         self.dims3 = grid.dims3
         self.rs, self.rowinfo, self.cols = grid.rs, grid.rowinfo, grid.cols
@@ -749,7 +759,8 @@ class _Frame:
             self.inv = None
         else:
             self.xp_ext, self.xt_ext, self.inv = _bin_rays(
-                rays.org, rays.dir, rays.tmin, rays.tmax, n_pad, tile)
+                rays.org, rays.dir, rays.tmin, rays.tmax, n_pad, tile,
+                fine=fine_bins)
         self.nt = n_pad // tile
         self.tabs = _tile_tabs(grid.bbox_lo, grid.bbox_hi, grid.dims3)
         self.per_ray, self.per_tile = _precompute(
@@ -832,7 +843,8 @@ class _Frame:
                     u=best[2].reshape(-1)[:n], v=best[3].reshape(-1)[:n])
 
 
-def _budgets(grid, n, any_hit, coherent, tile, slab, bmax, rowmax):
+def _budgets(grid, n, any_hit, coherent, tile, slab, bmax, rowmax,
+             fine_bins=False):
     """(tile, slab, n_pad, bcaps, rowcaps) with the reference's defaults.
     Coherent waves: the dense planner, tile 512, one round over the whole
     grid (the in-kernel early-out stands in for re-planning). Incoherent
@@ -844,7 +856,8 @@ def _budgets(grid, n, any_hit, coherent, tile, slab, bmax, rowmax):
     da_max = max(d[0] for d in grid.dims3)
     tile = tile or (512 if coherent else 256)
     slab = slab or (da_max if coherent else 8)
-    n_pad = (-(-n // tile) + (0 if coherent else _NGROUPS)) * tile
+    groups = _NGROUPS_FINE if fine_bins else _NGROUPS
+    n_pad = (-(-n // tile) + (0 if coherent else groups)) * tile
     nt = n_pad // tile
     if bmax is None:
         # Any-hit waves have wider frusta per tile; budget slack costs
@@ -874,22 +887,26 @@ def trace_sweep(grid: PacketGrid, rays: Rays, any_hit: bool = False,
                 tile: int | None = None, slab: int | None = None,
                 bmax: int | None = None, return_overflow: bool = False,
                 coherent: bool = False, return_demand: bool = False,
-                rmax: int | None = None, rowmax: int | None = None):
+                fine_bins: bool | None = None, rmax: int | None = None,
+                rowmax: int | None = None):
     """Trace rays against a PacketGrid: closest hit, or with any_hit=True
     some hit in (tmin, tmax) (its t and id need not be the closest).
 
     coherent=True: the rays are camera-ordered (primaries); they keep
     their order and the dense planner runs. Otherwise they are binned by
-    (axis, sign) and the compact row-stream planner runs. The frame reads
+    (axis, sign) and the compact row-stream planner runs; fine_bins=True
+    (default off, as in the reference) also splits each bin by the signs
+    of the two minor direction components. The frame reads
     nothing back to the host. If a round demands more than its budget
     (`bmax` 768-ref blocks in round 0, `rowmax` live rows for the compact
     planner), the surplus is dropped and the device-side overflow flag is
     set (return_overflow=True). return_demand adds i32[2] = [peak round
     block demand, peak round live rows (compact planner; 0 otherwise)]."""
     n = rays.count
+    fine_bins = bool(fine_bins)   # None: the reference's default, off
     tile, slab, n_pad, bcaps, rowcaps = _budgets(
-        grid, n, any_hit, coherent, tile, slab, bmax, rowmax)
-    frame = _Frame(grid, rays, tile, n_pad, coherent)
+        grid, n, any_hit, coherent, tile, slab, bmax, rowmax, fine_bins)
+    frame = _Frame(grid, rays, tile, n_pad, coherent, fine_bins)
     best, overflow, demand_max, rows_max = frame.run(
         slab, bcaps, rmax or _RMAX, any_hit, rowcaps)
     hits = frame.hits(best, n)
@@ -903,13 +920,15 @@ def trace_sweep(grid: PacketGrid, rays: Rays, any_hit: bool = False,
 
 def first_round_stream(grid: PacketGrid, rays: Rays, any_hit: bool = False,
                        coherent: bool = True, tile: int | None = None,
-                       bmax: int | None = None, rowmax: int | None = None):
+                       bmax: int | None = None, rowmax: int | None = None,
+                       fine_bins: bool = False):
     """Round 0's sweep inputs (xt_round, gidx, tile_of, tminb, tile) for
     `rays` with trace_sweep's defaults, for holding the kernel against its
     plain version on a real stream."""
     tile, slab, n_pad, bcaps, rowcaps = _budgets(
-        grid, rays.count, any_hit, coherent, tile, None, bmax, rowmax)
-    frame = _Frame(grid, rays, tile, n_pad, coherent)
+        grid, rays.count, any_hit, coherent, tile, None, bmax, rowmax,
+        fine_bins)
+    frame = _Frame(grid, rays, tile, n_pad, coherent, fine_bins)
     xt_round, gidx, tile_of, tminb = frame.stream(
         frame.initial_best()[0], frame.per_tile["k0"], slab, bcaps[0],
         _RMAX, any_hit, rowcaps and rowcaps[0])[:4]

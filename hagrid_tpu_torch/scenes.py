@@ -11,6 +11,8 @@ importable. The camera presets are built on the port's own Camera.
   default), Crytek-Sponza scale and occlusion character.
 - ``san_miguel_like(n_tris)``: the atrium plus dense foliage (~1M tris).
 - ``random_soup(n)``: random triangle soup for property tests.
+
+``load_scene`` also takes a path to a Wavefront OBJ (io/obj.py).
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ from __future__ import annotations
 import numpy as np
 
 from .core.camera import Camera
+from .io.obj import load_obj
 
 
 def merge(meshes):
@@ -264,15 +267,23 @@ def san_miguel_like(n_tris=1000000, seed=11):
     return merge(meshes)
 
 
-def load_scene(name: str):
-    """Scene registry: name -> (verts, faces, camera)."""
-    if name == "cornell":
+def load_scene(name_or_path: str):
+    """Scene registry: name, or a path to a Wavefront .obj, -> (verts,
+    faces, camera). An OBJ gets a camera outside its bounds looking at
+    their center."""
+    if name_or_path.endswith(".obj"):
+        v, f = load_obj(name_or_path)
+        lo, hi = v.min(0), v.max(0)
+        c = (lo + hi) * 0.5
+        eye = c + (hi - lo) * np.array([0.6, 0.3, 1.2])
+        return v, f, Camera(eye=tuple(eye), center=tuple(c))
+    if name_or_path == "cornell":
         v, f = cornell_box()
         return v, f, cornell_camera()
-    if name == "sponza":
+    if name_or_path == "sponza":
         v, f = sponza_like()
         return v, f, sponza_camera()
-    if name == "san_miguel":
+    if name_or_path == "san_miguel":
         v, f = san_miguel_like()
         return v, f, san_miguel_camera()
-    raise ValueError(f"unknown scene {name!r}")
+    raise ValueError(f"unknown scene {name_or_path!r}")

@@ -191,8 +191,10 @@ def test_port_imports_no_jax():
         " 'ops.micro_kernels', 'exp.kernel_mt20', 'exp.mxu_micro',"
         " 'core.intersect', 'grid.invariants', 'utils.sanitize',"
         " 'utils.profiling', 'io.checkpoint', 'ops.wavefront',"
-        " 'grid.irregular', 'grid.traverse_ref')}\n"
-        "assert len(mods) >= 30 and new <= set(mods), mods\n"
+        " 'grid.irregular', 'grid.traverse_ref', 'io.obj', 'native',"
+        " 'native.objloader_native', 'parallel', 'parallel.mesh',"
+        " 'parallel.distributed', 'cli')}\n"
+        "assert len(mods) >= 45 and new <= set(mods), mods\n"
         "assert not bad, bad\n"
         "print(len(mods))\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,

@@ -601,3 +601,143 @@ def test_wavefront_on_card_matches_cpu(cuda, structure, any_hit):
         assert same.sum() > 0.995 * both.sum()
         torch.testing.assert_close(got.t.cpu()[same], want.t[same],
                                    rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [2000, 20000])
+@pytest.mark.parametrize("kw", [dict(refine=True), dict(adaptive=True),
+                                dict(refine=True, adaptive=True)])
+def test_option_builds_on_card_equal_cpu(cuda, kw, n):
+    """Refined and adaptive packet builds on the card: rs, rowinfo,
+    planes, totals and the cols ids equal the CPU build's; the cols
+    coefficients match at rtol 1e-6, atol 1e-6."""
+    v, f = scenes.sponza_like(n)
+    on = build_packet(Triangles.from_mesh(v, f, device=cuda), **kw)
+    off = build_packet(Triangles.from_mesh(v, f, device="cpu"), **kw)
+    for k in ("rs", "rowinfo", "planes", "total_refs", "total_pairs"):
+        assert torch.equal(getattr(on, k).cpu(), getattr(off, k)), k
+    cols = on.cols.cpu()
+    assert torch.equal(cols[:, 16::20], off.cols[:, 16::20])
+    torch.testing.assert_close(cols, off.cols, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("any_hit", [False, True])
+def test_refined_and_fine_bin_streams_on_card(cuda, any_hit):
+    """Round 0 of a fine-binned incoherent wave on a refined, adaptive
+    grid: the kernel equals its plain version on that stream (ids, and t
+    within rtol 1e-5 where the ids agree), and the whole trace, coherent
+    primaries and fine-binned rays, agrees with the oracle (_check's
+    thresholds; any hit: hit/miss on more than 99.9%)."""
+    from hagrid_tpu_torch.ops.sweep_trace import (first_round_stream,
+                                                  trace_sweep)
+    v, f = scenes.sponza_like(20000)
+    tris = Triangles.from_mesh(v, f, device=cuda)
+    grid = build_packet(tris, refine=True, adaptive=True)
+    rng = np.random.default_rng(3)
+    n = 8192
+    lo, hi = v.min(0), v.max(0)
+    org = rng.uniform(lo + 0.05 * (hi - lo), hi - 0.05 * (hi - lo),
+                      (n, 3)).astype(np.float32)
+    d = rng.normal(size=(n, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    tmax = np.full(n, 3.0 if any_hit else np.inf, np.float32)
+    t = lambda a: torch.as_tensor(a, device=cuda)  # noqa: E731
+    from hagrid_tpu_torch.core.types import Rays
+    rays = Rays(t(org), t(d), t(np.zeros(n, np.float32)), t(tmax))
+    xt, gidx, tile_of, tminb, tile = first_round_stream(
+        grid, rays, any_hit=any_hit, coherent=False, bmax=8192,
+        fine_bins=True)
+    before = launches["sweep_blocks_anyhit" if any_hit else "sweep_blocks"]
+    got = sweep_blocks(xt, grid.cols, gidx, tile_of, tminb, tile,
+                       any_hit=any_hit)
+    assert launches["sweep_blocks_anyhit" if any_hit
+                    else "sweep_blocks"] == before + 1
+    ref = sweep_blocks_plain(xt, grid.cols, gidx, tile_of, tminb, tile,
+                             any_hit=any_hit)
+    nt = xt.shape[1] // tile - 1
+    swept = torch.zeros(nt + 1, dtype=torch.bool, device=cuda)
+    swept[tile_of.long()] = True
+    rows = swept[:nt].repeat_interleave(tile)
+    m = rows.numel()
+    if any_hit:
+        assert torch.equal(got[1][:m][rows] >= 0, ref[1][:m][rows] >= 0)
+    else:
+        same = got[1][:m][rows] == ref[1][:m][rows]
+        assert same.float().mean() >= 0.9999
+        hit = same & (got[1][:m][rows] >= 0)
+        torch.testing.assert_close(got[0][:m][rows][hit],
+                                   ref[0][:m][rows][hit], rtol=1e-5,
+                                   atol=0)
+    hits, ovf = trace_sweep(grid, rays, any_hit=any_hit, fine_bins=True,
+                            bmax=8192, return_overflow=True)
+    assert not bool(ovf)
+    if any_hit:
+        want = oracle.any_hit(rays, tris)
+        assert ((hits.tri_id >= 0) == want).float().mean() > 0.999
+    else:
+        _check_on_card(hits, oracle.closest_hit(rays, tris))
+        prim = primary_rays(scenes.sponza_camera(), 128, 128,
+                            order="block", device=cuda)
+        ph, povf = trace_sweep(grid, prim, coherent=True, bmax=4096,
+                               return_overflow=True)
+        assert not bool(povf)
+        _check_on_card(ph, oracle.closest_hit(prim, tris))
+
+
+def _check_on_card(hits, ref):
+    """tests/test_sweep_trace.py::_check's thresholds, on the card."""
+    got_hit, ref_hit = hits.tri_id >= 0, ref.tri_id >= 0
+    t_ok = torch.isclose(hits.t, ref.t, rtol=1e-3, atol=1e-5)
+    assert ((got_hit == ref_hit) & (~ref_hit | t_ok)).float().mean() > 0.999
+    both = got_hit & ref_hit
+    assert (hits.tri_id[both] == ref.tri_id[both]).float().mean() > 0.995
+
+
+@pytest.mark.gpu
+def test_native_obj_parser_on_card_machine(cuda, tmp_path):
+    """The native parser builds with the machine's g++ and reads what
+    save_obj wrote; the loaded scene renders on the card."""
+    from hagrid_tpu_torch.io import obj
+    v, f = scenes.sponza_like(3000)
+    p = str(tmp_path / "s.obj")
+    obj.save_obj(p, v, f)
+    nv, nf = obj.load_obj(p)
+    pv, pf = obj.load_obj_python(p)
+    assert np.array_equal(nv, v) and np.array_equal(nf, f)
+    assert np.array_equal(pv, v) and np.array_equal(pf, f)
+    lv, lf, cam = scenes.load_scene(p)
+    s = RenderSession.create(Triangles.from_mesh(lv, lf, device=cuda),
+                             verts=lv)
+    hits = s.trace(primary_rays(cam, 64, 64, order="block", device=cuda),
+                   coherent=True)
+    assert hits.tri_id.device.type == "cuda"
+
+
+@pytest.mark.gpu
+def test_shard_trace_on_card(cuda):
+    """shard_trace over every card (replicated grid, one shard each) and
+    over two shards of the first card: hits equal one trace, each shard on
+    its mesh device."""
+    from hagrid_tpu_torch.ops.sweep_trace import trace_sweep
+    from hagrid_tpu_torch.parallel import distributed, mesh
+    v, f = scenes.cornell_box()
+    grid = build_packet(Triangles.from_mesh(v, f, device=cuda),
+                        dims=(6, 6, 6))
+    rays = primary_rays(scenes.cornell_camera(), 64, 64, order="block",
+                        device=cuda)
+
+    def fn(g, r):
+        return trace_sweep(g, r, coherent=True, tile=128)
+
+    want = fn(grid, rays)
+    for m in (mesh.make_mesh(), mesh.make_mesh(2, devices=cuda)):
+        padded, n = mesh.pad_rays(rays, len(m) * 128)
+        shards = mesh.shard_trace(fn, m)(grid, padded)
+        assert [h.tri_id.device for h in shards] == \
+            [torch.device(d) for d in m]
+        got = mesh.gather(shards, device=cuda, n=n)
+        assert torch.equal(got.tri_id, want.tri_id)
+        assert torch.equal(got.t, want.t)
+    distributed.initialize(world_size=1)
+    assert distributed.global_mesh()[0].type == "cuda"

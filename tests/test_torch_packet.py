@@ -194,7 +194,17 @@ def test_build_packet_empty_scene():
 
 
 def test_build_packet_unported_options_raise():
+    """adaptive=True and refine=True are ported now (held against the
+    reference in tests/test_torch_packet_options.py) and build; what
+    build_packet still refuses raises: dims past the 10-bit voxel fields,
+    and a refined rs table past rowinfo's 28-bit offsets (sized with the
+    m = 4 and m = 2 reserve, where the unrefined table would fit)."""
     t = Triangles.from_mesh(*j_scenes.cornell_box(), device="cpu")
     for kw in (dict(adaptive=True), dict(refine=True)):
-        with pytest.raises(NotImplementedError):
-            packet.build_packet(t, **kw)
+        assert int(packet.build_packet(t, **kw).total_refs) > 0
+    with pytest.raises(ValueError):
+        packet.build_packet(t, dims3=((1024, 1, 1),) * 3)
+    big = ((400, 400, 499),) * 3
+    assert packet._rs_entries(big, False) < 1 << 28
+    with pytest.raises(ValueError):
+        packet.build_packet(t, dims3=big, refine=True)
