@@ -21,9 +21,10 @@ Phases, one line each (any failure exits non-zero before the result):
    the JAX package's dhash;
 6. with --profile only, run last: torch.profiler over the warm frame, the
    warm rebuild, one AO wave, render_ao and ambient_occlusion, and
-   phase 12's irregular primary frame and AO wave (device time by op,
-   device busy and idle share against the host wall time of synced
-   runs); the full per-op list goes to PATH if given;
+   phase 12's irregular primary frame, AO wave and uniform frame (device
+   time by op, device busy, idle share against the host wall time of
+   synced runs, device kernels a call); the full per-op list goes to
+   PATH if given;
 7. the any-hit sweep kernel (K3) against its plain version: the round-0
    stream of the first AO wave of the Sponza frame (4 samples' shape,
    max_dist 0.1 x the largest extent, origin-sorted, binned) and a random
@@ -68,9 +69,19 @@ Phases, one line each (any failure exits non-zero before the result):
    warm rebuild with BuildParams.dynamic(); the uniform grid's build and
    the same primary frame; and the irregular and uniform builds of
    Cornell and a random soup on the card, whose integer tables must
-   equal the CPU builds'. With --profile, phase 6 adds the irregular
-   primary frame and AO wave. One JSON line {"structures": ...} carries
-   the numbers.
+   equal the CPU builds'. The three waves march in the wavefront segment
+   kernel (csrc/wavefront.cu): its launch counts from zero before the
+   irregular frame (each wave must launch it), the device kernels and
+   torch ops of one call of each wave (torch.profiler), then each wave
+   once more through the kernel and through its plain version on the
+   card: ids, hit/miss, the step total and the rounds equal on every
+   ray, every round's state bit-equal, the kernel's time a round
+   (back-to-back launches), the plain version's, the work the round's
+   data needs (the kernel's counters) and the bound; the per-row
+   instance on the round-0 states of the primary frame and the AO wave.
+   With --profile, phase 6 adds the irregular primary frame, the AO wave
+   and the uniform frame. One JSON line {"structures": ...} carries the
+   numbers.
 13. the packet grid's options at full width on the Sponza-scale scene:
    build_packet(refine=True) and (adaptive=True), cold and 3 warm
    rebuilds (refs against the default grid, rows refined by 2 and 4,
@@ -98,6 +109,8 @@ The last two lines are the kernels' JSON record and
 from __future__ import annotations
 
 import argparse
+import contextlib
+import ctypes
 import json
 import pathlib
 import subprocess
@@ -189,6 +202,30 @@ IRREGULAR_TABLES = ("top_res_log", "top_offset", "entries", "cell_min",
                     "preexpanded", "top_info", "erec", "num_entries",
                     "total_refs")
 UNIFORM_TABLES = ("cell_starts", "ref_ids", "total_refs")
+# The wavefront segment kernel (phase 12). FP32 operations counted from
+# csrc/wavefront.cu: per ref tested (mt_update) 9 (cross) + 5 (det) + 2
+# (|det| > eps) + 1 (1/det) + 3 (o - v0) + 6 (u) + 9 (cross) + 6 (v) + 6
+# (t) + 6 (the hit's compares and u + v) + 2 (t against the best); per cell
+# exit 18 (the planes and their t, 6 an axis) + 2 (argmin) + 1 (isfinite)
+# + 2 (terminated) + 6 (the exit point) + 6 (into voxel units) + 3 (floor)
+# + 3 (to int). Integer work and selects are not counted.
+SEG_SOURCE = "hagrid_tpu_torch/csrc/wavefront.cu"
+SEG_REPLACES = ("hagrid_tpu/ops/wavefront.py:290-311 (_jit_segment: an XLA "
+                "while_loop of _make_body, no Pallas kernel)")
+SEG_OPS_PER_TEST = 55
+SEG_OPS_PER_EXIT = 41
+# State bytes a ray, read once (alive 1, cursor, end, cmin 12, cmax 12,
+# t_cur, org 12, dir 12, tmin, tmax, best t/id/u/v 16, steps) and written
+# once (all but org, dir, tmin and tmax).
+SEG_STATE_BYTES = 89 + 57
+# Bytes gathered in 32-byte sectors, by the kernel's lookup mode: a row
+# gather (quad mode: one 192-byte row of 4 refs; per-row: a 48-byte row
+# over 2 sectors; uniform: the ref id and the three 12-byte vertex rows,
+# a sector each) and a cell fetch (top_info's sector and the 32-byte erec
+# row; uniform: the sector of cell_starts[c], c + 1).
+SEG_ROW_BYTES = {0: 192, 1: 64, 2: 128}
+SEG_CELL_BYTES = {0: 64, 1: 64, 2: 32}
+SEG_MODE_NAMES = {0: "quad rows", 1: "per row", 2: "uniform"}
 # Phase 13: warm rebuilds per option grid, check_packet's tri sample, the
 # scenes whose option tables the card must share with the CPU, the
 # calibration probes' budgets (blocks by coherence, live rows), the CLI's
@@ -491,7 +528,7 @@ def compare_anyhit(name, got, ref, args, rows):
 
 
 def reset_launches():
-    for counts in (sk.launches, mk.launches):
+    for counts in (sk.launches, mk.launches, wavefront.launches):
         for k in counts:
             counts[k] = 0
 
@@ -556,6 +593,8 @@ def profile(what, fn, card, path, runs=3):
     events = prof.key_averages()
     busy = sum(e.self_device_time_total for e in events
                if e.device_type == DeviceType.CUDA) / 1e3 / runs
+    kernels = sum(e.count for e in events
+                  if e.device_type == DeviceType.CUDA) / runs
     ops = [(e.self_device_time_total / 1e3 / runs, e.count // runs, e.key)
            for e in events if e.device_type == DeviceType.CPU
            and e.self_device_time_total > 0]
@@ -567,14 +606,14 @@ def profile(what, fn, card, path, runs=3):
     top = ", ".join(f"{k} {ms:.3f} ms" for ms, _, k in ops[:6])
     print(f"[profile] {what}: host wall {wall:.3f}-{max(walls):.3f} ms "
           f"per synced call; device busy {busy:.3f} ms per call, idle "
-          f"share {max(0.0, 1 - busy / wall):.3f} ({card}); by op: {top}",
-          flush=True)
+          f"share {max(0.0, 1 - busy / wall):.3f}, {kernels:.0f} device "
+          f"kernels per call ({card}); by op: {top}", flush=True)
     if path:
         with open(path, "a") as out:
             out.write(f"# {what}, {card}: device ms per call, calls per "
                       f"call, op\n")
             out.writelines(f"{ms:.4f}\t{n}\t{k}\n" for ms, n, k in ops)
-    return dict(wall_ms=walls, busy_ms=busy,
+    return dict(wall_ms=walls, busy_ms=busy, kernels=kernels,
                 idle_share=max(0.0, 1 - busy / wall))
 
 
@@ -881,6 +920,212 @@ def tables_equal(a, b, fields):
             if not torch.equal(getattr(a, k).cpu(), getattr(b, k).cpu())]
 
 
+@contextlib.contextmanager
+def segment_calls(replace=None):
+    """While active, wavefront.trace's segments are recorded (grid, lookup,
+    input state, refs_per_iter, any_hit, cap) and run by `replace` (the
+    plain version, say) instead of wavefront.segment."""
+    calls, orig = [], wavefront.segment
+
+    def rec(grid, lookup_fn, state, refs_per_iter, any_hit, cap):
+        calls.append((grid, lookup_fn, state, refs_per_iter, any_hit, cap))
+        return (replace or orig)(grid, lookup_fn, state, refs_per_iter,
+                                 any_hit, cap)
+
+    wavefront.segment = rec
+    try:
+        yield calls
+    finally:
+        wavefront.segment = orig
+
+
+def launch_census(fn):
+    """Device kernels, torch ops that launched device work, segment
+    kernels and their device ms in one synced call of fn, from
+    torch.profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as tprofile
+    torch.cuda.synchronize()
+    with tprofile(activities=[ProfilerActivity.CPU,
+                              ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ev = prof.key_averages()
+    kernels = sum(e.count for e in ev if e.device_type == DeviceType.CUDA)
+    ops = sum(e.count for e in ev if e.device_type == DeviceType.CPU
+              and e.self_device_time_total > 0)
+    seg = [e for e in ev if e.device_type == DeviceType.CUDA
+           and "segment_kernel" in e.key]
+    return dict(device_kernels=kernels, torch_ops=ops,
+                segment_kernels=sum(e.count for e in seg),
+                segment_ms=sum(e.self_device_time_total for e in seg) / 1e3)
+
+
+def segment_launch_ms(grid, lk, st, rpi, any_hit, cap, iters=10):
+    """Device ms of one launch of the segment kernel on a round's inputs:
+    the arguments packed once, then `iters` back-to-back launches of the
+    C entry point between two CUDA events, so no torch op of the wrapper
+    sits between them (these launches bypass the wrapper's count)."""
+    mode, args, outs, live, keep = wavefront.kernel_args(grid, lk, st, rpi,
+                                                         cap)
+    lib = _build.load()
+    stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+
+    def launch():
+        sk.raise_on(lib, lib.hagrid_wavefront_segment(
+            ctypes.byref(args), mode, int(any_hit), stream),
+            "wavefront segment")
+
+    ms = cuda_ms(launch, iters=iters, warmup=1)
+    del outs, live, keep   # the launches wrote into these until here
+    return ms
+
+
+def state_diff(a, b):
+    """(integer fields that differ, max |a - b| over the float fields,
+    float fields not bit-equal) of two wavefront states."""
+    ints, err, bits = [], 0.0, []
+    for k in wavefront._MARCH_KEYS:
+        x, y = a[k], b[k]
+        if x.dtype != torch.float32:
+            if not torch.equal(x, y):
+                ints.append(k)
+            continue
+        if not torch.equal(x.view(torch.int32), y.view(torch.int32)):
+            bits.append(k)
+            same = (x == y) | (torch.isnan(x) & torch.isnan(y))
+            d = torch.where(same, 0.0, (x - y).abs())
+            err = max(err, float(torch.nan_to_num(d, nan=float("inf")).max()))
+    return ints, err, bits
+
+
+def table_bytes(grid, mode):
+    if mode == 2:
+        t = grid.tris
+        return nbytes(grid.cell_starts, grid.ref_ids, t.v0, t.e1, t.e2)
+    return nbytes(grid.top_info, grid.erec, grid.ref_tris)
+
+
+def segment_rounds(name, calls, card):
+    """Each recorded round of a wave through the kernel and through the
+    plain version on the same input state: every field bit-equal, the
+    kernel's and the plain version's device ms, the work the round's data
+    needs (from the kernel's counters) and its bound. Sums over the wave's
+    rounds."""
+    tot = dict(ms=0.0, plain_ms=0.0, bound_ops_ms=0.0, bound_bytes_ms=0.0,
+               bound_ms=0.0, tests=0, rows=0, exits=0, loads=0,
+               alive_iters=0, gathered_bytes=0, max_abs_err=0.0)
+    per = []
+    for r, (grid, lk, st, rpi, any_hit, cap) in enumerate(calls):
+        mode = wavefront.kernel_mode(grid, lk)
+        work = torch.zeros(4, dtype=torch.int64, device=DEV)
+        got, live = wavefront.segment(grid, lk, st, rpi, any_hit, cap,
+                                      work=work)
+        want, plive = wavefront.segment_plain(grid, lk, st, rpi, any_hit,
+                                              cap)
+        ints, err, bits = state_diff(got, want)
+        check(not ints and not bits and int(live) == int(plive),
+              f"{name} round {r}: the kernel differs from its plain "
+              f"version (integers {ints}, floats {bits}, max |d| {err}, "
+              f"live {int(live)} against {int(plive)})")
+        ms = segment_launch_ms(grid, lk, st, rpi, any_hit, cap)
+        plain_ms = cuda_ms(lambda: wavefront.segment_plain(
+            grid, lk, st, rpi, any_hit, cap), iters=1, warmup=0)
+        tests, rows, exits, loads = (int(x) for x in work.tolist())
+        alive_iters = int((want["steps"] - st["steps"]).sum())
+        n = st["alive"].shape[0]
+        ops = tests * SEG_OPS_PER_TEST + exits * SEG_OPS_PER_EXIT
+        nb = n * SEG_STATE_BYTES + (table_bytes(grid, mode) if r == 0 else 0)
+        ops_ms, bytes_ms = ops / FP32_PEAK * 1e3, nb / HBM_RATE * 1e3
+        gathered = rows * SEG_ROW_BYTES[mode] + loads * SEG_CELL_BYTES[mode]
+        per.append(dict(rays=n, cap=cap, live=int(live), ms=ms,
+                        plain_ms=plain_ms, tests=tests, rows=rows,
+                        exits=exits, loads=loads, alive_iters=alive_iters,
+                        bound_ms=max(ops_ms, bytes_ms)))
+        for k, x in (("ms", ms), ("plain_ms", plain_ms),
+                     ("bound_ops_ms", ops_ms), ("bound_bytes_ms", bytes_ms),
+                     ("bound_ms", max(ops_ms, bytes_ms)), ("tests", tests),
+                     ("rows", rows), ("exits", exits), ("loads", loads),
+                     ("alive_iters", alive_iters),
+                     ("gathered_bytes", gathered)):
+            tot[k] += x
+        tot["max_abs_err"] = max(tot["max_abs_err"], err)
+    tot["bound_by"] = ("operations" if tot["bound_ops_ms"]
+                       >= tot["bound_bytes_ms"] else "bytes")
+    tot["mode"] = SEG_MODE_NAMES[mode]
+    tot["gathered_ms"] = tot["gathered_bytes"] / HBM_RATE * 1e3
+    tot["rounds"] = per
+    print(f"[segment] {name} ({tot['mode']}, {len(calls)} rounds, {card}): "
+          f"kernel {tot['ms']:.4f} ms (back-to-back launches) "
+          f"against the plain version "
+          f"{tot['plain_ms']:.1f} ms on the same inputs, every field "
+          f"bit-equal; bound {tot['bound_ms']:.4f} ms by {tot['bound_by']} "
+          f"(operations {tot['bound_ops_ms']:.4f}, bytes "
+          f"{tot['bound_bytes_ms']:.4f}); {tot['alive_iters']} alive "
+          f"iterations, {tot['tests']} refs tested, {tot['rows']} row "
+          f"gathers, {tot['exits']} cell exits, {tot['loads']} cell "
+          f"fetches; {tot['gathered_bytes']} bytes gathered in sectors = "
+          f"{tot['gathered_ms']:.4f} ms at {HBM_RATE / 1e12:.2f} TB/s; by "
+          f"round (rays, cap, ms): "
+          f"{[(p['rays'], p['cap'], round(p['ms'], 4)) for p in per]}",
+          flush=True)
+    return tot
+
+
+def segment_record(name, fn, card):
+    """A wave through the kernel (its rounds recorded) and through the
+    plain version on the card (segment_plain in place of the kernel):
+    hit/miss, tri ids, the step total and the rounds must be equal on
+    every ray; max |dt| is reported. Then segment_rounds on the kernel
+    run's rounds."""
+    with segment_calls(wavefront.segment_plain):
+        ref = fn()
+        torch.cuda.synchronize()
+    ref_stats = dict(wavefront.last_trace_stats)
+    with segment_calls() as calls:
+        hits = fn()
+        torch.cuda.synchronize()
+    stats = dict(wavefront.last_trace_stats)
+    found = hits.tri_id >= 0
+    dt = float((hits.t - ref.t)[found].abs().max()) if bool(found.any()) \
+        else 0.0
+    same_ids = torch.equal(hits.tri_id, ref.tri_id)
+    print(f"[segment] {name}: kernel against segment_plain on every ray: "
+          f"tri ids (hit/miss) {'equal' if same_ids else 'DIFFER'}, max "
+          f"|dt| {dt}, steps {stats['mean_steps']} against "
+          f"{ref_stats['mean_steps']} a ray, rounds {stats['rounds']} against"
+          f" {ref_stats['rounds']}", flush=True)
+    check(same_ids, f"{name}: the kernel's tri ids differ from the plain "
+          f"version's")
+    check(stats["mean_steps"] == ref_stats["mean_steps"]
+          and stats["rounds"] == ref_stats["rounds"],
+          f"{name}: the step total or the rounds differ")
+    rec = segment_rounds(name, calls, card)
+    rec.update(max_abs_dt=dt, mean_steps=stats["mean_steps"])
+    return rec, calls
+
+
+def per_row_check(name, call):
+    """One round-0 segment on the same grid with one ref row more (the
+    kernel's per-row packed mode): kernel against plain, bit-equal."""
+    grid, lk, st, rpi, any_hit, cap = call
+    odd = grid.replace(ref_tris=torch.cat([grid.ref_tris,
+                                           grid.ref_tris[:1]]))
+    check(wavefront.kernel_mode(odd, lk) == 1, "the padded grid is not "
+          "per-row")
+    got, live = wavefront.segment(odd, lk, st, rpi, any_hit, cap)
+    want, plive = wavefront.segment_plain(odd, lk, st, rpi, any_hit, cap)
+    ints, err, bits = state_diff(got, want)
+    print(f"[segment] {name}, per-row packed mode, round 0 "
+          f"({st['alive'].shape[0]} rays, cap {cap}): integers differ in "
+          f"{ints}, floats not bit-equal in {bits}, max |d| {err}",
+          flush=True)
+    check(not ints and not bits and int(live) == int(plive),
+          f"{name}: the per-row kernel differs from its plain version")
+    return err
+
+
 def structures_phase(v, tris, rays, card):
     """Phase 12: the irregular and uniform structures at full width, and
     small builds on the card against the CPU's."""
@@ -911,17 +1156,26 @@ def structures_phase(v, tris, rays, card):
     print(f"[structures] check_irregular on {CHECK_SAMPLE} sampled voxels, "
           f"(tri, voxel) and (cell, voxel) pairs: passed in "
           f"{irr['check_irregular_s']:.2f} s", flush=True)
+    # The main path of the structures: every count from zero, then the
+    # irregular primary frame, the irregular AO wave and (below) the
+    # uniform primary frame through the user's entry points.
+    reset_launches()
+    irr_frame = lambda: s_irr.trace(rays, coherent=True)  # noqa: E731
     irr["primary"], hits = wave_record(
-        "irregular primary 1024x1024", rays, lambda: s_irr.trace(rays,
-                                                                 coherent=True),
-        tris, card, any_hit=False)
+        "irregular primary 1024x1024", rays, irr_frame, tris, card,
+        any_hit=False)
+    seg_launches = {"irregular primary": wavefront.launches[
+        "wavefront_segment"]}
     p, n, found = hit_points_normals(rays, hits, tris.n)
     gen = torch.Generator(device=DEV).manual_seed(0)
     wave = integrators.ao_rays(p, n, found,
                                integrators.default_ao_distance(s_irr), gen)
-    irr["ao_wave"], _ = wave_record(
-        "irregular AO wave", wave, lambda: integrators.trace_sorted(
-            s_irr, wave, any_hit=True), tris, card, any_hit=True)
+    irr_ao = lambda: integrators.trace_sorted(  # noqa: E731
+        s_irr, wave, any_hit=True)
+    irr["ao_wave"], _ = wave_record("irregular AO wave", wave, irr_ao, tris,
+                                    card, any_hit=True)
+    seg_launches["irregular AO wave"] = (wavefront.launches[
+        "wavefront_segment"] - sum(seg_launches.values()))
     irr["peak_mb"] = (torch.cuda.max_memory_allocated() - base_mem) / 2**20
     t0 = time.perf_counter()
     s_dyn = RenderSession.create(tris, BuildParams.dynamic(),
@@ -944,11 +1198,43 @@ def structures_phase(v, tris, rays, card):
     uni = dict(cold_wall_ms=(time.perf_counter() - t0) * 1e3,
                ref_capacity=s_uni.grid.ref_ids.shape[0])
     uni.update(build_record("uniform", s_uni, tris, card))
-    uni["primary"], _ = wave_record(
-        "uniform primary 1024x1024", rays,
-        lambda: s_uni.trace(rays, coherent=True), tris, card, any_hit=False)
+    uni_frame = lambda: s_uni.trace(rays, coherent=True)  # noqa: E731
+    uni["primary"], _ = wave_record("uniform primary 1024x1024", rays,
+                                    uni_frame, tris, card, any_hit=False)
+    seg_launches["uniform primary"] = (wavefront.launches[
+        "wavefront_segment"] - sum(seg_launches.values()))
     rec["uniform"] = uni
-    del s_uni
+    # What the main path launched (counts from zero, read before any
+    # comparison with the plain version), and one call of each wave
+    # under the profiler: device kernels, torch ops, segment kernels.
+    rec["segment_launches"] = seg_launches
+    launches = sum(seg_launches.values())
+    census = {}
+    for name, fn in (("irregular primary", irr_frame),
+                     ("irregular AO wave", irr_ao),
+                     ("uniform primary", uni_frame)):
+        census[name] = launch_census(fn)
+    rec["launch_census"] = census
+    print(f"[segment] wavefront_segment launches on the main path "
+          f"{launches}, by wave {seg_launches}; one call of each wave: "
+          f"{census}", flush=True)
+    for name, n_seg in seg_launches.items():
+        check(n_seg > 0, f"{name} did not launch wavefront_segment")
+    # Each wave once more through the kernel and through the plain
+    # version, round by round on the same inputs.
+    seg = {}
+    seg_calls = {}
+    for name, fn in (("irregular primary", irr_frame),
+                     ("irregular AO wave", irr_ao),
+                     ("uniform primary", uni_frame)):
+        seg[name], seg_calls[name] = segment_record(name, fn, card)
+    row_err = max(per_row_check("irregular primary",
+                                seg_calls["irregular primary"][0]),
+                  per_row_check("irregular AO wave",
+                                seg_calls["irregular AO wave"][0]))
+    del seg_calls
+    rec["segment"] = {k: {x: y for x, y in r.items() if x != "rounds"}
+                      for k, r in seg.items()}
 
     # The card's builds against the CPU's: integer tables equal.
     small = {}
@@ -970,7 +1256,9 @@ def structures_phase(v, tris, rays, card):
     rec["phase_s"] = time.perf_counter() - t_phase
     print(f"[structures] phase 12 took {rec['phase_s']:.1f} s", flush=True)
     print(json.dumps({"structures": rec}), flush=True)
-    return s_irr, wave
+    seg_entry = dict(launches=launches, seg=seg, row_err=row_err,
+                     census=census)
+    return s_irr, wave, s_uni, seg_entry
 
 
 def hits_against(name, hits, ref):
@@ -1420,9 +1708,14 @@ def micro_phase(card, dev):
         "dots_fp32 (K5)", lambda: mk.dots_fp32(xt, g),
         lambda: mk.dots_fp32(xt, g[:hb * mk.BLOCK_ROWS]),
         lambda: mk.dots_fp32_plain(xt, g), card)
-    # Its function rounds every multiply and add: one instruction each.
-    b = micro_bound("dots_fp32 (K5)", pairs * DOTS_OPS_PER_PAIR, FP32_ISSUE,
+    # Operations at the FP32 peak, as for K1-K4; its function rounds every
+    # multiply and add, one instruction each: bound_ms_no_fma.
+    b = micro_bound("dots_fp32 (K5)", pairs * DOTS_OPS_PER_PAIR, FP32_PEAK,
                     nbytes(xt, g, *got))
+    b["bound_ms_no_fma"] = micro_bound(
+        "dots_fp32 (K5), one instruction an operation",
+        pairs * DOTS_OPS_PER_PAIR, FP32_ISSUE, nbytes(xt, g, *got))[
+            "bound_ms"]
     entries["dots_fp32"] = dict(
         name="dots_fp32", replaces="exp/r4_mxu_micro.py:68 (K5, vpu_kernel)",
         max_abs_err=max_diff(got, want), ms=ms, plain_ms=plain_ms, **b)
@@ -1545,6 +1838,33 @@ def micro_phase(card, dev):
         e.setdefault("library_ms", None)
         e.update(route="cuda", source=MICRO_SOURCE, launches=counts[key])
     return list(entries.values())
+
+
+def segment_entry(seg):
+    """The kernels line's wavefront_segment entry: ms, plain_ms and the
+    bound summed over the irregular primary frame's rounds (the main
+    path's first wave); the AO wave's and the uniform frame's beside
+    them. No single PyTorch call marches a ray: library_ms is null."""
+    prim = seg["seg"]["irregular primary"]
+    ao = seg["seg"]["irregular AO wave"]
+    uni = seg["seg"]["uniform primary"]
+    err = max(r["max_abs_err"] for r in seg["seg"].values())
+    return dict(
+        name="wavefront_segment", route="cuda", source=SEG_SOURCE,
+        replaces=SEG_REPLACES, launches=seg["launches"],
+        max_abs_err=max(err, seg["row_err"]), ms=prim["ms"],
+        plain_ms=prim["plain_ms"], bound_ms=prim["bound_ms"],
+        bound_by=prim["bound_by"], library_ms=None,
+        rounds=len(prim["rounds"]), gathered_ms=prim["gathered_ms"],
+        ms_in_frame={k: c["segment_ms"] for k, c in seg["census"].items()},
+        max_abs_dt=max(r["max_abs_dt"] for r in seg["seg"].values()),
+        ms_ao=ao["ms"], plain_ms_ao=ao["plain_ms"],
+        bound_ms_ao=ao["bound_ms"], gathered_ms_ao=ao["gathered_ms"],
+        ms_uniform=uni["ms"], plain_ms_uniform=uni["plain_ms"],
+        bound_ms_uniform=uni["bound_ms"],
+        gathered_ms_uniform=uni["gathered_ms"],
+        device_kernels_per_frame={k: c["device_kernels"]
+                                  for k, c in seg["census"].items()})
 
 
 def main(profile_path=False, with_variants=False) -> int:
@@ -1704,7 +2024,7 @@ def main(profile_path=False, with_variants=False) -> int:
     micro_kernels = micro_phase(card, dev)
 
     # 12. the paper's structures: irregular and uniform grids, wavefront
-    s_irr, irr_wave = structures_phase(v, tris, rays, card)
+    s_irr, irr_wave, s_uni, seg = structures_phase(v, tris, rays, card)
 
     # 13. the packet grid's options, the OBJ loader, sharding, the CLI
     opts, opt_launches = options_phase(v, f, tris, rays, hits, grid, session,
@@ -1728,7 +2048,9 @@ def main(profile_path=False, with_variants=False) -> int:
                           lambda: s_irr.trace(rays, coherent=True)),
                          ("irregular AO wave",
                           lambda: integrators.trace_sorted(
-                              s_irr, irr_wave, any_hit=True))):
+                              s_irr, irr_wave, any_hit=True)),
+                         ("uniform primary frame",
+                          lambda: s_uni.trace(rays, coherent=True))):
             profile(what, fn, card, profile_path)
 
     # ms/plain_ms: the gather call (the main path's); *_pregathered: the
@@ -1764,7 +2086,8 @@ def main(profile_path=False, with_variants=False) -> int:
              bound_by=ao["bound"]["bound_by"], library_ms=None,
              blocks_skipped=ao["bound"]["blocks_skipped"],
              bound_ms_no_fma=ao["bound"]["bound_ms_no_fma"]),
-        *micro_kernels]
+        *micro_kernels,
+        segment_entry(seg)]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

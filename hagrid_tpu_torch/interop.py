@@ -101,3 +101,23 @@ def irregular_grid_from_reference(jg, device=None) -> IrregularGrid:
         tris=_tris_from_reference(jg.tris, device),
         **{k: _t(getattr(jg, k), torch.int32, device)
            for k in _IRREGULAR_INT})
+
+
+def wavefront_state_from_numpy(alive, cursor, end, cmin, cmax, t_cur, org,
+                               dir, tmin, tmax, idx, best_t, best_id, best_u,
+                               best_v, steps=None, device=None) -> dict:
+    """A wavefront march state (ops/wavefront.py's dict) from the JAX
+    package's fields; its `rays` come apart into org, dir, tmin and tmax.
+    steps defaults to zeros."""
+    f, i = torch.float32, torch.int32
+    state = dict(alive=_t(alive, torch.bool, device),
+                 t_cur=_t(t_cur, f, device), org=_t(org, f, device),
+                 dir=_t(dir, f, device), tmin=_t(tmin, f, device),
+                 tmax=_t(tmax, f, device), best_t=_t(best_t, f, device),
+                 best_u=_t(best_u, f, device), best_v=_t(best_v, f, device))
+    for k, x in (("cursor", cursor), ("end", end), ("cmin", cmin),
+                 ("cmax", cmax), ("idx", idx), ("best_id", best_id)):
+        state[k] = _t(x, i, device)
+    state["steps"] = (torch.zeros_like(state["cursor"]) if steps is None
+                      else _t(steps, i, device))
+    return state

@@ -119,6 +119,8 @@ def load():
         lib.hagrid_dots_fp32.restype = i
         lib.hagrid_dots_bf16.argtypes = [p, p, p, p, i, i, p]
         lib.hagrid_dots_bf16.restype = i
+        lib.hagrid_wavefront_segment.argtypes = [p, i, i, p]
+        lib.hagrid_wavefront_segment.restype = i
         lib.hagrid_sweep_occupancy.argtypes = [i, i, p]
         lib.hagrid_sweep_occupancy.restype = i
         lib.hagrid_error_string.argtypes = [i]

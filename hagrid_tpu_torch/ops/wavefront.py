@@ -8,10 +8,16 @@ bbox (the irregular grid's "skip by cell, not voxel" rule). Every update
 is masked by `alive`, so a dead ray never changes: iterations past a
 ray's end are no-ops, and the hits do not depend on how many run.
 
-`trace` runs in rounds: a capped number of iterations with no host read,
-one read of the live count, a scatter of the batch's results and a
-compaction of the survivors into a power-of-two batch, so the cost
-follows the live rays and not the slowest one.
+`trace` runs in rounds: a segment of a capped number of iterations with
+no host read, one read of the live count, a scatter of the batch's
+results and a compaction of the survivors into a power-of-two batch, so
+the cost follows the live rays and not the slowest one. A segment
+(`segment`) is one CUDA kernel on the card (csrc/wavefront.cu, one thread
+per ray, the state in registers for all its iterations; it replaces the
+reference's compiled `_jit_segment` loop) and the lockstep loop
+`segment_plain` on the CPU. `launches` counts the kernel's launches.
+`trace_wavefront` (no compaction, any lookup callable) stays a lockstep
+loop of torch ops on every device.
 
 Grid protocol: a grid exposes `.cell_starts`, `.ref_ids`, `.bbox_lo/hi`,
 `.tris` and `.fine_dims`, and `lookup_fn(grid, voxel i32[N, 3]) -> (cell,
@@ -22,17 +28,22 @@ lookup from its packed `top_info`/`erec` tables and tests refs from
 
 from __future__ import annotations
 
+import ctypes
 import warnings
 
 import torch
 
 from ..core.intersect import moller_trumbore, safe_inv_dir, slab_test
 from ..core.types import Hits, Rays
+from . import _build
 from .segment import take, trunc_i32
 
 _OUT_KEYS = ("best_t", "best_id", "best_u", "best_v", "steps")
 # trace_wavefront's iterations between two reads of the live count.
 _CHECK_EVERY = 16
+
+# Kernel launches, counted where the kernel is launched.
+launches = {"wavefront_segment": 0}
 
 
 def _geometry(grid):
@@ -211,6 +222,187 @@ def _make_body(grid, lookup_fn, refs_per_iter: int, any_hit: bool):
     return body
 
 
+def segment_plain(grid, lookup_fn, state: dict, refs_per_iter: int,
+                  any_hit: bool, cap: int):
+    """`cap` lockstep iterations of the body over the batch state (the
+    reference's `_jit_segment`, which stops early once every ray is dead:
+    a dead ray is a fixed point, so the state is the same). `steps` counts
+    the iterations in which a ray was alive. Returns (new state, live
+    count as an i32 tensor); the input state is not changed."""
+    body = _make_body(grid, lookup_fn, refs_per_iter, any_hit)
+    for _ in range(cap):
+        steps = state["steps"] + state["alive"].to(torch.int32)
+        state = body(state)
+        state["steps"] = steps
+    return state, state["alive"].sum(dtype=torch.int32)
+
+
+# The kernel's lookups (csrc/wavefront.cu's kMode).
+_QUAD, _ROWS, _UNIFORM = 0, 1, 2
+# The state the kernel writes, and (in the order of SegArgs) all it reads.
+_MARCH_KEYS = ("alive", "cursor", "end", "cmin", "cmax", "t_cur", "best_t",
+               "best_id", "best_u", "best_v", "steps")
+_STATE_DTYPES = dict(alive=torch.bool, cursor=torch.int32, end=torch.int32,
+                     cmin=torch.int32, cmax=torch.int32, t_cur=torch.float32,
+                     org=torch.float32, dir=torch.float32,
+                     tmin=torch.float32, tmax=torch.float32,
+                     best_t=torch.float32, best_id=torch.int32,
+                     best_u=torch.float32, best_v=torch.float32,
+                     steps=torch.int32)
+_P, _I = ctypes.c_void_p, ctypes.c_int
+
+
+class _SegArgs(ctypes.Structure):
+    """csrc/wavefront.cu's SegArgs, field for field."""
+    _fields_ = (
+        [("n", _I), ("cap", _I), ("refs_per_iter", _I), ("no_tris", _I),
+         ("dims", _I * 3), ("geom", _P), ("top_info", _P), ("n_top", _I),
+         ("n_erec", _I), ("n_ref_rows", _I), ("levels", _I),
+         ("top_dims", _I * 3), ("erec", _P), ("ref_tris", _P),
+         ("cell_starts", _P), ("ref_ids", _P), ("v0", _P), ("e1", _P),
+         ("e2", _P), ("n_starts", _I), ("n_ref_ids", _I), ("n_tris", _I),
+         ("pad_", _I)]
+        + [(k, _P) for k in _STATE_DTYPES]   # in the struct's order
+        + [(k + "_o", _P) for k in _MARCH_KEYS]
+        + [("live", _P), ("work", _P)])
+
+
+def kernel_mode(grid, lookup_fn) -> int:
+    """Which of the kernel's lookups serves (grid, lookup_fn): the packed
+    irregular tables in quad rows (rows % 4 == 0) or per row, or the
+    uniform grid's; anything else raises, naming the lookup."""
+    if getattr(grid, "is_packed", False):
+        return _QUAD if grid.ref_tris.shape[0] % 4 == 0 else _ROWS
+    from ..grid.uniform import uniform_lookup
+    if lookup_fn is uniform_lookup:
+        return _UNIFORM
+    raise ValueError(
+        f"the wavefront kernel has no lookup "
+        f"{getattr(lookup_fn, '__qualname__', lookup_fn)!r} for "
+        f"{type(grid).__name__}: it serves the packed irregular grid and "
+        f"grid.uniform.uniform_lookup")
+
+
+def segment(grid, lookup_fn, state: dict, refs_per_iter: int, any_hit: bool,
+            cap: int, work=None):
+    """One segment of `cap` march iterations: the CUDA kernel for CUDA
+    tensors, the plain version `segment_plain` for CPU tensors; anything
+    else raises. Returns (new state, live count as an i32 tensor). work:
+    optional i64[4] on the card, to which the kernel adds the refs it
+    tested, the rows it gathered, the cell exits it computed and the
+    cells it fetched (the plain version counts nothing)."""
+    dev = state["alive"].device
+    if dev.type == "cpu":
+        if work is not None:
+            raise ValueError("the plain version counts no work")
+        return segment_plain(grid, lookup_fn, state, refs_per_iter, any_hit,
+                             cap)
+    if dev.type != "cuda":
+        raise ValueError(f"the wavefront segment runs on CUDA or CPU "
+                         f"tensors, not {dev}")
+    return _segment_cuda(grid, lookup_fn, state, refs_per_iter, any_hit, cap,
+                         work)
+
+
+def _table(x: torch.Tensor, dtype, dev, rows16: bool = False):
+    """A grid table as the kernel reads it: contiguous, on `dev`, and with
+    rows16 16-byte aligned (the kernel loads rows as 16-byte vectors)."""
+    if x.dtype != dtype or x.device != dev:
+        raise ValueError(f"a grid table is {x.dtype} on {x.device}, the "
+                         f"kernel needs {dtype} on {dev}")
+    x = x.contiguous()
+    if rows16 and x.data_ptr() % 16:
+        x = x.clone()
+    return x
+
+
+def kernel_args(grid, lookup_fn, state, refs_per_iter, cap, work=None):
+    """The kernel's arguments for one segment, on the state's device:
+    (mode, SegArgs, output state tensors, live count, the tensors the
+    arguments point into, which must outlive the launch). Checks every
+    state field's type, shape and device and raises on what the kernel
+    does not take."""
+    mode = kernel_mode(grid, lookup_fn)
+    dev = state["alive"].device
+    n = state["alive"].shape[0]
+    ins = {}
+    for k, dt in _STATE_DTYPES.items():
+        x = state[k]
+        shape = (n, 3) if k in ("cmin", "cmax", "org", "dir") else (n,)
+        if x.dtype != dt or x.device != dev or tuple(x.shape) != shape:
+            raise ValueError(f"state[{k!r}] must be {dt}{list(shape)} on "
+                             f"{dev}, got {x.dtype}{list(x.shape)} on "
+                             f"{x.device}")
+        ins[k] = x.contiguous()
+    if work is not None and (work.dtype != torch.int64
+                             or work.shape != (4,) or work.device != dev):
+        raise ValueError(f"work must be i64[4] on {dev}")
+    outs = {k: torch.empty_like(ins[k]) for k in _MARCH_KEYS}
+    live = torch.zeros((), dtype=torch.int32, device=dev)
+    # _geometry's cell size, without its blocking copy of the dims (a
+    # stream sync): the same division by the same values.
+    dims_f = torch.tensor(grid.fine_dims, dtype=torch.float32).to(
+        dev, non_blocking=True)
+    lo = _table(grid.bbox_lo, torch.float32, dev)
+    cs = (grid.bbox_hi - lo) / dims_f
+    geom = torch.cat([lo, cs, 1.0 / cs])
+    tris = grid.tris
+    keep = [geom, *ins.values()]
+
+    def ptr(x):
+        keep.append(x)
+        return x.data_ptr()
+
+    a = _SegArgs(n=n, cap=int(cap), refs_per_iter=int(refs_per_iter),
+                 no_tris=int(tris.count == 0), geom=geom.data_ptr(),
+                 live=live.data_ptr(),
+                 work=None if work is None else work.data_ptr())
+    a.dims[:] = [int(d) for d in grid.fine_dims]
+    if mode == _UNIFORM:
+        starts = _table(grid.cell_starts, torch.int32, dev)
+        refs = _table(grid.ref_ids, torch.int32, dev)
+        a.cell_starts, a.n_starts = ptr(starts), starts.shape[0]
+        a.ref_ids, a.n_ref_ids = ptr(refs), refs.shape[0]
+        a.n_tris = tris.count
+        if tris.count:
+            a.v0, a.e1, a.e2 = (ptr(_table(getattr(tris, k), torch.float32,
+                                           dev)) for k in ("v0", "e1", "e2"))
+    else:
+        top = _table(grid.top_info, torch.int32, dev)
+        erec = _table(grid.erec, torch.int32, dev, rows16=True)
+        rows = _table(grid.ref_tris, torch.float32, dev, rows16=True)
+        a.top_info, a.n_top = ptr(top), top.shape[0]
+        a.erec, a.n_erec = ptr(erec), erec.shape[0]
+        a.ref_tris, a.n_ref_rows = ptr(rows), rows.shape[0]
+        a.levels = int(grid.levels)
+        a.top_dims[:] = [int(d) for d in grid.top_dims]
+    for k, x in ins.items():
+        setattr(a, k, x.data_ptr())
+    for k, x in outs.items():
+        setattr(a, k + "_o", x.data_ptr())
+    return mode, a, outs, live, keep
+
+
+def _segment_cuda(grid, lookup_fn, state, refs_per_iter, any_hit, cap,
+                  work):
+    mode, a, outs, live, _keep = kernel_args(grid, lookup_fn, state,
+                                             refs_per_iter, cap, work)
+    if a.n == 0:
+        return dict(state), live
+    dev = state["alive"].device
+    lib = _build.load()
+    err = lib.hagrid_wavefront_segment(
+        ctypes.byref(a), mode, int(any_hit),
+        _P(torch.cuda.current_stream(dev).cuda_stream))
+    if err:
+        raise RuntimeError(f"wavefront segment kernel launch failed: "
+                           f"{lib.hagrid_error_string(err).decode()}")
+    launches["wavefront_segment"] += 1
+    out = dict(state)
+    out.update(outs)
+    return out, live
+
+
 def max_march_iters(fine_dims, max_refs_per_cell: int = 0,
                     refs_per_iter: int = 4) -> int:
     """Upper bound on one ray's march length (safety cap). Each iteration
@@ -293,20 +485,17 @@ def trace(grid, lookup_fn, rays: Rays, refs_per_iter: int = 2,
     starts = grid.cell_starts
     max_cell_refs = int((starts[1:] - starts[:-1]).max())
     hard_cap = max_march_iters(grid.fine_dims, max_cell_refs, refs_per_iter)
-    body = _make_body(grid, lookup_fn, refs_per_iter, any_hit)
     cap = round_iters
     size = n
     rounds = 0
     while True:
         rounds += 1
-        for _ in range(min(cap, hard_cap)):
-            steps = state["steps"] + state["alive"].to(torch.int32)
-            state = body(state)
-            state["steps"] = steps
+        state, live = segment(grid, lookup_fn, state, refs_per_iter, any_hit,
+                              min(cap, hard_cap))
         idx = state["idx"].long()
         for k in _OUT_KEYS:
             out[k][idx] = state[k]
-        live = int(state["alive"].sum())
+        live = int(live)
         if live == 0 or cap >= hard_cap:
             if live:
                 warnings.warn(

@@ -1,8 +1,9 @@
 """PyTorch port on the card: the CUDA sweep kernel (closest hit and any
 hit) and the sweep-cost micro-kernels against their plain versions,
-traced waves (static and deformed scenes) against the oracle, and the
-irregular and uniform builds and the wavefront against the CPU's, all on
-an NVIDIA GPU.
+traced waves (static and deformed scenes) against the oracle, the
+irregular and uniform builds and the wavefront against the CPU's, and the
+wavefront segment kernel against its plain version, all on an NVIDIA
+GPU.
 
 These tests skip without a GPU (the CUDA kernel has no CPU mode). The
 module imports no JAX, so it also runs on a machine without it; there,
@@ -741,3 +742,128 @@ def test_shard_trace_on_card(cuda):
         assert torch.equal(got.t, want.t)
     distributed.initialize(world_size=1)
     assert distributed.global_mesh()[0].type == "cuda"
+
+
+def _segment_case(kind, scene, device):
+    """(grid, lookup, rays) on `device` for the segment kernel's lookups:
+    the irregular grid in quad rows or per row (one row more), or the
+    uniform grid; Cornell primaries or random rays around a soup, half
+    of them with finite tmax."""
+    v, f = scenes.cornell_box() if scene == "cornell" else \
+        scenes.random_soup(150, seed=0)
+    off = Triangles.from_mesh(v, f, device="cpu")
+    if kind == "uniform":
+        g, lk = uniform.build_uniform(off), uniform.uniform_lookup
+    else:
+        g, lk = irregular.build_irregular(off), irregular.irregular_lookup
+        if kind == "rows":
+            g = g.replace(ref_tris=torch.cat([g.ref_tris, g.ref_tris[:1]]))
+    if scene == "cornell":
+        rays = primary_rays(scenes.cornell_camera(), 64, 64, order="block",
+                            device="cpu")
+    else:
+        rng = np.random.default_rng(3)
+        lo, hi = g.bbox_lo.numpy(), g.bbox_hi.numpy()
+        org = rng.uniform(lo - 0.3 * (hi - lo), hi + 0.3 * (hi - lo),
+                          (4096, 3)).astype(np.float32)
+        d = rng.normal(size=(4096, 3)).astype(np.float32)
+        d /= np.linalg.norm(d, axis=1, keepdims=True)
+        tmax = np.where(rng.random(4096) < 0.5, np.inf,
+                        rng.uniform(0.1, 2.0, 4096)).astype(np.float32)
+        from hagrid_tpu_torch.core.types import Rays
+        rays = Rays.make(org, d, None, tmax, device="cpu")
+    rays = type(rays)(*(getattr(rays, k).to(device)
+                        for k in ("org", "dir", "tmin", "tmax")))
+    return _grid_to(g, device), lk, rays
+
+
+def _assert_states_bit_equal(got, want):
+    from hagrid_tpu_torch.ops import wavefront
+    for k in wavefront._MARCH_KEYS:
+        a, b = got[k], want[k]
+        if a.dtype == torch.float32:
+            a, b = a.view(torch.int32), b.view(torch.int32)
+        assert torch.equal(a, b), k
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cap", [1, 7, 16])
+@pytest.mark.parametrize("any_hit", [False, True], ids=["closest", "any"])
+@pytest.mark.parametrize("kind", ["quad", "rows", "uniform"])
+@pytest.mark.parametrize("scene", ["cornell", "soup150"])
+def test_segment_kernel_matches_plain_on_card(cuda, scene, kind, any_hit,
+                                              cap):
+    """The segment kernel against segment_plain on the card, segment by
+    segment from the same start state until every ray is dead: every
+    field bit-equal, the live count equal, one launch per segment."""
+    from hagrid_tpu_torch.ops import wavefront
+    g, lk, rays = _segment_case(kind, scene, cuda)
+    assert wavefront.kernel_mode(g, lk) == {"quad": 0, "rows": 1,
+                                            "uniform": 2}[kind]
+    st = wavefront._init_state(g, lk, rays)
+    st["steps"] = torch.zeros_like(st["cursor"])
+    ref = st
+    for _ in range(2000):
+        before = wavefront.launches["wavefront_segment"]
+        st, live = wavefront.segment(g, lk, st, 2, any_hit, cap)
+        assert wavefront.launches["wavefront_segment"] == before + 1
+        ref, ref_live = wavefront.segment_plain(g, lk, ref, 2, any_hit, cap)
+        torch.cuda.synchronize()
+        _assert_states_bit_equal(st, ref)
+        assert int(live) == int(ref_live)
+        if int(live) == 0:
+            break
+    assert int(live) == 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("any_hit", [False, True], ids=["closest", "any"])
+@pytest.mark.parametrize("kind", ["quad", "rows", "uniform"])
+def test_segment_trace_matches_plain_on_card(cuda, monkeypatch, kind,
+                                             any_hit):
+    """wavefront.trace with its compaction (small batches: a round per
+    compaction) through the kernel and through segment_plain on the card:
+    hits bit-equal, the same rounds and steps."""
+    from hagrid_tpu_torch.ops import wavefront
+    g, lk, rays = _segment_case(kind, "soup150", cuda)
+    got = wavefront.trace(g, lk, rays, any_hit=any_hit, min_batch=256)
+    stats = dict(wavefront.last_trace_stats)
+    monkeypatch.setattr(wavefront, "segment", wavefront.segment_plain)
+    want = wavefront.trace(g, lk, rays, any_hit=any_hit, min_batch=256)
+    assert stats == wavefront.last_trace_stats and stats["rounds"] > 1
+    assert torch.equal(got.tri_id, want.tri_id)
+    for k in ("t", "u", "v"):
+        assert torch.equal(getattr(got, k).view(torch.int32),
+                           getattr(want, k).view(torch.int32)), k
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("structure", ["irregular", "uniform"])
+def test_session_trace_launches_the_segment_kernel(cuda, monkeypatch,
+                                                   structure):
+    """RenderSession.trace on the card marches through the kernel and never
+    through segment_plain; a lookup the kernel does not know raises on
+    CUDA tensors, before any launch."""
+    from hagrid_tpu_torch.ops import wavefront
+
+    def refuse(*a, **k):
+        raise AssertionError("segment_plain ran on the card")
+
+    monkeypatch.setattr(wavefront, "segment_plain", refuse)
+    v, f = scenes.cornell_box()
+    s = RenderSession.create(Triangles.from_mesh(v, f, device=cuda),
+                             structure=structure, verts=v)
+    rays = primary_rays(scenes.cornell_camera(), 64, 64, order="block",
+                        device=cuda)
+    before = wavefront.launches["wavefront_segment"]
+    hits = s.trace(rays)
+    assert wavefront.launches["wavefront_segment"] > before
+    assert float((hits.tri_id >= 0).float().mean()) > 0.9
+    g, lk, r = _segment_case("uniform", "cornell", cuda)
+    st = wavefront._init_state(g, lk, r)
+    st["steps"] = torch.zeros_like(st["cursor"])
+    before = wavefront.launches["wavefront_segment"]
+    with pytest.raises(ValueError, match="no lookup"):
+        wavefront.segment(g, lambda grid, vox: lk(grid, vox), st, 2, False,
+                          4)
+    assert wavefront.launches["wavefront_segment"] == before
