@@ -62,26 +62,34 @@ Phases, one line each (any failure exits non-zero before the result):
    RenderSession(structure="irregular") with BuildParams() (cold build,
    3 warm rebuilds, describe(), capacities, device memory,
    check_irregular on a sample of 2^20 voxels and (tri, voxel) pairs),
-   a 1024x1024 block-order primary frame through the compacted wavefront
+   a 1024x1024 block-order primary frame through the wavefront
    (ms, Mrays/s, hit fraction, wavefront.last_trace_stats with no
-   truncated ray) and one AO wave of 1,048,576 any-hit rays through
-   trace_sorted, each with 4096 sampled rays against the oracle; one
-   warm rebuild with BuildParams.dynamic(); the uniform grid's build and
-   the same primary frame; and the irregular and uniform builds of
+   truncated ray), one AO wave of 1,048,576 any-hit rays and one path
+   bounce 1 of 1,048,576 closest-hit rays (made from the primary hits as
+   path_trace makes its bounces) through trace_sorted, each with 4096
+   sampled rays against the oracle; one warm rebuild with
+   BuildParams.dynamic(); the uniform grid's build and the same primary
+   frame; and the irregular and uniform builds of
    Cornell and a random soup on the card, whose integer tables must
-   equal the CPU builds'. The three waves march in the wavefront segment
-   kernel (csrc/wavefront.cu): its launch counts from zero before the
-   irregular frame (each wave must launch it), the device kernels and
-   torch ops of one call of each wave (torch.profiler), then each wave
-   once more through the kernel and through its plain version on the
-   card: ids, hit/miss, the step total and the rounds equal on every
-   ray, every round's state bit-equal, the kernel's time a round
-   (back-to-back launches), the plain version's, the work the round's
-   data needs (the kernel's counters) and the bound; the per-row
-   instance on the round-0 states of the primary frame and the AO wave.
-   With --profile, phase 6 adds the irregular primary frame, the AO wave
-   and the uniform frame. One JSON line {"structures": ...} carries the
-   numbers.
+   equal the CPU builds'. The four waves march in the wavefront march
+   kernel (csrc/wavefront.cu, one launch a trace): its launch counts from
+   zero before the irregular frame, and each wave must launch it once a
+   trace; then each wave under torch.profiler (device kernels, torch ops,
+   march and segment kernels a call, device busy and idle share against
+   synced calls; one march kernel a call and no segment kernel), and each
+   wave's last trace once more through the kernel and through its plain
+   version trace_plain on the card: tri ids, the bits of t/u/v and every
+   ray's steps equal, no ray truncated (the kernel's main-path instance,
+   the one timed, and its work-counting instance); the kernel's time
+   alone (back-to-back launches) at the trace's refill threshold and at
+   others, the plain version's, the work the trace's data needs (the
+   kernel's counters), SIMD efficiency and the bound (operations; bytes
+   of the rays in and the hits out; the whole tables beside it as a
+   ceiling on the rows read); the irregular primary and AO waves also in
+   the per-row instance; ptxas's registers, stack and spills for each
+   instance ([march] lines). With --profile, phase 6 adds the irregular
+   primary frame, the AO wave and the uniform frame. One JSON line
+   {"structures": ...} carries the numbers.
 13. the packet grid's options at full width on the Sponza-scale scene:
    build_packet(refine=True) and (adaptive=True), cold and 3 warm
    rebuilds (refs against the default grid, rows refined by 2 and 4,
@@ -110,7 +118,6 @@ from __future__ import annotations
 
 import argparse
 import contextlib
-import ctypes
 import json
 import pathlib
 import subprocess
@@ -202,30 +209,40 @@ IRREGULAR_TABLES = ("top_res_log", "top_offset", "entries", "cell_min",
                     "preexpanded", "top_info", "erec", "num_entries",
                     "total_refs")
 UNIFORM_TABLES = ("cell_starts", "ref_ids", "total_refs")
-# The wavefront segment kernel (phase 12). FP32 operations counted from
+# The wavefront march kernel (phase 12). FP32 operations counted from
 # csrc/wavefront.cu: per ref tested (mt_update) 9 (cross) + 5 (det) + 2
 # (|det| > eps) + 1 (1/det) + 3 (o - v0) + 6 (u) + 9 (cross) + 6 (v) + 6
 # (t) + 6 (the hit's compares and u + v) + 2 (t against the best); per cell
 # exit 18 (the planes and their t, 6 an axis) + 2 (argmin) + 1 (isfinite)
 # + 2 (terminated) + 6 (the exit point) + 6 (into voxel units) + 3 (floor)
-# + 3 (to int). Integer work and selects are not counted.
-SEG_SOURCE = "hagrid_tpu_torch/csrc/wavefront.cu"
-SEG_REPLACES = ("hagrid_tpu/ops/wavefront.py:290-311 (_jit_segment: an XLA "
-                "while_loop of _make_body, no Pallas kernel)")
-SEG_OPS_PER_TEST = 55
-SEG_OPS_PER_EXIT = 41
-# State bytes a ray, read once (alive 1, cursor, end, cmin 12, cmax 12,
-# t_cur, org 12, dir 12, tmin, tmax, best t/id/u/v 16, steps) and written
-# once (all but org, dir, tmin and tmax).
-SEG_STATE_BYTES = 89 + 57
+# + 3 (to int); per ray 3 (1/d) + 24 (the slab test, 8 an axis) + 6 (its
+# reductions with tmin, tmax) + 1 (enter <= exit), and per ray that starts
+# alive 6 (the entry point) + 12 (its voxel) + 1 (t_cur). Integer work and
+# selects are not counted.
+MARCH_SOURCE = "hagrid_tpu_torch/csrc/wavefront.cu"
+MARCH_REPLACES = ("hagrid_tpu/ops/wavefront.py:290-311 (_jit_segment: an XLA "
+                  "while_loop of _make_body, no Pallas kernel) and the round "
+                  "loop of trace, :350-418")
+MARCH_OPS_PER_TEST = 55
+MARCH_OPS_PER_EXIT = 41
+MARCH_OPS_PER_RAY = 34
+MARCH_OPS_PER_START = 19
+# Bytes a ray, read once (org 12, dir 12, tmin, tmax) and written once
+# (t, id, u, v, steps).
+MARCH_RAY_BYTES = 32 + 20
 # Bytes gathered in 32-byte sectors, by the kernel's lookup mode: a row
 # gather (quad mode: one 192-byte row of 4 refs; per-row: a 48-byte row
 # over 2 sectors; uniform: the ref id and the three 12-byte vertex rows,
 # a sector each) and a cell fetch (top_info's sector and the 32-byte erec
 # row; uniform: the sector of cell_starts[c], c + 1).
-SEG_ROW_BYTES = {0: 192, 1: 64, 2: 128}
-SEG_CELL_BYTES = {0: 64, 1: 64, 2: 32}
-SEG_MODE_NAMES = {0: "quad rows", 1: "per row", 2: "uniform"}
+MARCH_ROW_BYTES = {0: 192, 1: 64, 2: 128}
+MARCH_CELL_BYTES = {0: 64, 1: 64, 2: 32}
+MARCH_MODE_NAMES = {0: "quad rows", 1: "per row", 2: "uniform"}
+# Refill thresholds timed on each wave (wavefront.REFILL holds the ones a
+# trace takes, by the wave's coherence),
+# and the back-to-back launches timed for each.
+MARCH_REFILLS = (32, 24, 16, 12, 8, 6, 4, 2, 1)
+MARCH_ITERS = 10
 # Phase 13: warm rebuilds per option grid, check_packet's tri sample, the
 # scenes whose option tables the card must share with the CPU, the
 # calibration probes' budgets (blocks by coherence, live rows), the CLI's
@@ -879,11 +896,13 @@ def span(xs):
     return f"{min(xs):.3f}-{max(xs):.3f}"
 
 
-def wave_record(name, wave, fn, tris, card, any_hit):
+def wave_record(name, wave, fn, tris, card, any_hit, min_hit=0.5):
     """Trace a wave through a wavefront session: one untimed call, then
     STRUCT_FRAMES timed; last_trace_stats (no truncated ray), 4096
-    sampled rays against the oracle. Returns the wave's record and
-    hits."""
+    sampled rays against the oracle, and for closest hit a hit fraction
+    above min_hit (a primary frame sees the scene almost everywhere; a
+    bounce escapes through the scene's openings). Returns the wave's
+    record and hits."""
     fn()
     walls, devs, hits = wall_and_device_ms(fn, STRUCT_FRAMES)
     stats = dict(wavefront.last_trace_stats)
@@ -897,7 +916,8 @@ def wave_record(name, wave, fn, tris, card, any_hit):
     if any_hit:
         check_anyhit_sample(name, wave, hits, tris)
     else:
-        check(0.5 < hit_frac <= 1.0, f"{name}: hit fraction {hit_frac}")
+        check(min_hit < hit_frac <= 1.0, f"{name}: hit fraction "
+              f"{hit_frac}")
         check_closest_sample(name, wave, hits, tris)
     return dict(rays=wave.count, wall_ms=walls, ms=devs, mrays_s=mrays,
                 hit_fraction=hit_frac, **stats), hits
@@ -921,83 +941,89 @@ def tables_equal(a, b, fields):
 
 
 @contextlib.contextmanager
-def segment_calls(replace=None):
-    """While active, wavefront.trace's segments are recorded (grid, lookup,
-    input state, refs_per_iter, any_hit, cap) and run by `replace` (the
-    plain version, say) instead of wavefront.segment."""
-    calls, orig = [], wavefront.segment
+def trace_calls():
+    """While active, every call of wavefront.trace is recorded (grid,
+    lookup, rays, refs_per_iter, any_hit, coherent) and then run as it
+    is."""
+    calls, orig = [], wavefront.trace
 
-    def rec(grid, lookup_fn, state, refs_per_iter, any_hit, cap):
-        calls.append((grid, lookup_fn, state, refs_per_iter, any_hit, cap))
-        return (replace or orig)(grid, lookup_fn, state, refs_per_iter,
-                                 any_hit, cap)
+    def rec(grid, lookup_fn, rays, refs_per_iter=2, any_hit=False, *a,
+            coherent=False, **kw):
+        calls.append((grid, lookup_fn, rays, refs_per_iter, any_hit,
+                      coherent))
+        return orig(grid, lookup_fn, rays, refs_per_iter, any_hit, *a,
+                    coherent=coherent, **kw)
 
-    wavefront.segment = rec
+    wavefront.trace = rec
     try:
         yield calls
     finally:
-        wavefront.segment = orig
+        wavefront.trace = orig
 
 
-def launch_census(fn):
-    """Device kernels, torch ops that launched device work, segment
-    kernels and their device ms in one synced call of fn, from
-    torch.profiler."""
+def launch_census(fn, runs=3):
+    """Host wall of `runs` synced calls of fn, then torch.profiler over
+    `runs` back-to-back calls: device kernels, torch ops that launched
+    device work, march and segment kernels and the march's device ms, the
+    device busy time, each per call, and the idle share."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as tprofile
-    torch.cuda.synchronize()
-    with tprofile(activities=[ProfilerActivity.CPU,
-                              ProfilerActivity.CUDA]) as prof:
+    walls = []
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
-    ev = prof.key_averages()
-    kernels = sum(e.count for e in ev if e.device_type == DeviceType.CUDA)
-    ops = sum(e.count for e in ev if e.device_type == DeviceType.CPU
-              and e.self_device_time_total > 0)
-    seg = [e for e in ev if e.device_type == DeviceType.CUDA
-           and "segment_kernel" in e.key]
-    return dict(device_kernels=kernels, torch_ops=ops,
-                segment_kernels=sum(e.count for e in seg),
-                segment_ms=sum(e.self_device_time_total for e in seg) / 1e3)
+        walls.append((time.perf_counter() - t0) * 1e3)
+    with tprofile(activities=[ProfilerActivity.CPU,
+                              ProfilerActivity.CUDA]) as prof:
+        for _ in range(runs):
+            fn()
+        torch.cuda.synchronize()
+    ev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    cpu = [e for e in prof.key_averages() if e.device_type == DeviceType.CPU
+           and e.self_device_time_total > 0]
+    march = [e for e in ev if "march_kernel" in e.key]
+    busy = sum(e.self_device_time_total for e in ev) / 1e3 / runs
+    check(busy > 0, "the profiler saw no device time in a wavefront wave")
+    return dict(device_kernels=sum(e.count for e in ev) / runs,
+                torch_ops=sum(e.count for e in cpu) / runs,
+                march_kernels=sum(e.count for e in march) / runs,
+                segment_kernels=sum(e.count for e in ev
+                                    if "segment_kernel" in e.key) / runs,
+                march_ms=sum(e.self_device_time_total for e in march)
+                / 1e3 / runs,
+                busy_ms=busy, wall_ms=walls,
+                idle_share=max(0.0, 1 - busy / min(walls)))
 
 
-def segment_launch_ms(grid, lk, st, rpi, any_hit, cap, iters=10):
-    """Device ms of one launch of the segment kernel on a round's inputs:
-    the arguments packed once, then `iters` back-to-back launches of the
-    C entry point between two CUDA events, so no torch op of the wrapper
-    sits between them (these launches bypass the wrapper's count)."""
-    mode, args, outs, live, keep = wavefront.kernel_args(grid, lk, st, rpi,
-                                                         cap)
-    lib = _build.load()
-    stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
-
-    def launch():
-        sk.raise_on(lib, lib.hagrid_wavefront_segment(
-            ctypes.byref(args), mode, int(any_hit), stream),
-            "wavefront segment")
-
-    ms = cuda_ms(launch, iters=iters, warmup=1)
-    del outs, live, keep   # the launches wrote into these until here
-    return ms
-
-
-def state_diff(a, b):
-    """(integer fields that differ, max |a - b| over the float fields,
-    float fields not bit-equal) of two wavefront states."""
-    ints, err, bits = [], 0.0, []
-    for k in wavefront._MARCH_KEYS:
-        x, y = a[k], b[k]
-        if x.dtype != torch.float32:
-            if not torch.equal(x, y):
-                ints.append(k)
-            continue
-        if not torch.equal(x.view(torch.int32), y.view(torch.int32)):
-            bits.append(k)
-            same = (x == y) | (torch.isnan(x) & torch.isnan(y))
-            d = torch.where(same, 0.0, (x - y).abs())
-            err = max(err, float(torch.nan_to_num(d, nan=float("inf")).max()))
-    return ints, err, bits
+def march_ms(call, refill=None, iters=MARCH_ITERS):
+    """Device ms of one launch of the march kernel on a trace's inputs:
+    the arguments packed once, then `iters` launches of the C entry point
+    back to back, each between two CUDA events with the ray counter
+    zeroed before its first event (the wrapper and its read stay out of
+    the time; these launches bypass the wrapper's count). Returns (ms,
+    blocks an SM, blocks launched). refill: the trace's own threshold
+    by default."""
+    grid, lk, rays, rpi, any_hit, coherent = call
+    if refill is None:
+        refill = wavefront.REFILL[coherent]
+    mode, args, outs, stats, keep = wavefront.march_args(grid, lk, rays, rpi,
+                                                         refill=refill)
+    shape = wavefront.launch_march(mode, args, any_hit)   # warm-up
+    pairs = []
+    for _ in range(iters):
+        stats.zero_()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        wavefront.launch_march(mode, args, any_hit)
+        end.record()
+        pairs.append((start, end))
+    torch.cuda.synchronize()
+    del outs, keep   # the launches wrote into these until here
+    return sum(s.elapsed_time(e) for s, e in pairs) / iters, shape
 
 
 def table_bytes(grid, mode):
@@ -1007,123 +1033,170 @@ def table_bytes(grid, mode):
     return nbytes(grid.top_info, grid.erec, grid.ref_tris)
 
 
-def segment_rounds(name, calls, card):
-    """Each recorded round of a wave through the kernel and through the
-    plain version on the same input state: every field bit-equal, the
-    kernel's and the plain version's device ms, the work the round's data
-    needs (from the kernel's counters) and its bound. Sums over the wave's
-    rounds."""
-    tot = dict(ms=0.0, plain_ms=0.0, bound_ops_ms=0.0, bound_bytes_ms=0.0,
-               bound_ms=0.0, tests=0, rows=0, exits=0, loads=0,
-               alive_iters=0, gathered_bytes=0, max_abs_err=0.0)
-    per = []
-    for r, (grid, lk, st, rpi, any_hit, cap) in enumerate(calls):
-        mode = wavefront.kernel_mode(grid, lk)
-        work = torch.zeros(4, dtype=torch.int64, device=DEV)
-        got, live = wavefront.segment(grid, lk, st, rpi, any_hit, cap,
-                                      work=work)
-        want, plive = wavefront.segment_plain(grid, lk, st, rpi, any_hit,
-                                              cap)
-        ints, err, bits = state_diff(got, want)
-        check(not ints and not bits and int(live) == int(plive),
-              f"{name} round {r}: the kernel differs from its plain "
-              f"version (integers {ints}, floats {bits}, max |d| {err}, "
-              f"live {int(live)} against {int(plive)})")
-        ms = segment_launch_ms(grid, lk, st, rpi, any_hit, cap)
-        plain_ms = cuda_ms(lambda: wavefront.segment_plain(
-            grid, lk, st, rpi, any_hit, cap), iters=1, warmup=0)
-        tests, rows, exits, loads = (int(x) for x in work.tolist())
-        alive_iters = int((want["steps"] - st["steps"]).sum())
-        n = st["alive"].shape[0]
-        ops = tests * SEG_OPS_PER_TEST + exits * SEG_OPS_PER_EXIT
-        nb = n * SEG_STATE_BYTES + (table_bytes(grid, mode) if r == 0 else 0)
-        ops_ms, bytes_ms = ops / FP32_PEAK * 1e3, nb / HBM_RATE * 1e3
-        gathered = rows * SEG_ROW_BYTES[mode] + loads * SEG_CELL_BYTES[mode]
-        per.append(dict(rays=n, cap=cap, live=int(live), ms=ms,
-                        plain_ms=plain_ms, tests=tests, rows=rows,
-                        exits=exits, loads=loads, alive_iters=alive_iters,
-                        bound_ms=max(ops_ms, bytes_ms)))
-        for k, x in (("ms", ms), ("plain_ms", plain_ms),
-                     ("bound_ops_ms", ops_ms), ("bound_bytes_ms", bytes_ms),
-                     ("bound_ms", max(ops_ms, bytes_ms)), ("tests", tests),
-                     ("rows", rows), ("exits", exits), ("loads", loads),
-                     ("alive_iters", alive_iters),
-                     ("gathered_bytes", gathered)):
-            tot[k] += x
-        tot["max_abs_err"] = max(tot["max_abs_err"], err)
-    tot["bound_by"] = ("operations" if tot["bound_ops_ms"]
-                       >= tot["bound_bytes_ms"] else "bytes")
-    tot["mode"] = SEG_MODE_NAMES[mode]
-    tot["gathered_ms"] = tot["gathered_bytes"] / HBM_RATE * 1e3
-    tot["rounds"] = per
-    print(f"[segment] {name} ({tot['mode']}, {len(calls)} rounds, {card}): "
-          f"kernel {tot['ms']:.4f} ms (back-to-back launches) "
-          f"against the plain version "
-          f"{tot['plain_ms']:.1f} ms on the same inputs, every field "
-          f"bit-equal; bound {tot['bound_ms']:.4f} ms by {tot['bound_by']} "
-          f"(operations {tot['bound_ops_ms']:.4f}, bytes "
-          f"{tot['bound_bytes_ms']:.4f}); {tot['alive_iters']} alive "
-          f"iterations, {tot['tests']} refs tested, {tot['rows']} row "
-          f"gathers, {tot['exits']} cell exits, {tot['loads']} cell "
-          f"fetches; {tot['gathered_bytes']} bytes gathered in sectors = "
-          f"{tot['gathered_ms']:.4f} ms at {HBM_RATE / 1e12:.2f} TB/s; by "
-          f"round (rays, cap, ms): "
-          f"{[(p['rays'], p['cap'], round(p['ms'], 4)) for p in per]}",
-          flush=True)
-    return tot
-
-
-def segment_record(name, fn, card):
-    """A wave through the kernel (its rounds recorded) and through the
-    plain version on the card (segment_plain in place of the kernel):
-    hit/miss, tri ids, the step total and the rounds must be equal on
-    every ray; max |dt| is reported. Then segment_rounds on the kernel
-    run's rounds."""
-    with segment_calls(wavefront.segment_plain):
-        ref = fn()
-        torch.cuda.synchronize()
-    ref_stats = dict(wavefront.last_trace_stats)
-    with segment_calls() as calls:
-        hits = fn()
-        torch.cuda.synchronize()
-    stats = dict(wavefront.last_trace_stats)
-    found = hits.tri_id >= 0
-    dt = float((hits.t - ref.t)[found].abs().max()) if bool(found.any()) \
+def hits_bits_diff(got, want):
+    """The fields of two Hits that are not bit-equal, and max |dt| over
+    rays that both hit."""
+    bad = [] if torch.equal(got.tri_id, want.tri_id) else ["tri_id"]
+    bad += [k for k in ("t", "u", "v")
+            if not torch.equal(getattr(got, k).view(torch.int32),
+                               getattr(want, k).view(torch.int32))]
+    both = (got.tri_id >= 0) & (want.tri_id >= 0)
+    dt = float((got.t - want.t)[both].abs().max()) if bool(both.any()) \
         else 0.0
-    same_ids = torch.equal(hits.tri_id, ref.tri_id)
-    print(f"[segment] {name}: kernel against segment_plain on every ray: "
-          f"tri ids (hit/miss) {'equal' if same_ids else 'DIFFER'}, max "
-          f"|dt| {dt}, steps {stats['mean_steps']} against "
-          f"{ref_stats['mean_steps']} a ray, rounds {stats['rounds']} against"
-          f" {ref_stats['rounds']}", flush=True)
-    check(same_ids, f"{name}: the kernel's tri ids differ from the plain "
-          f"version's")
-    check(stats["mean_steps"] == ref_stats["mean_steps"]
-          and stats["rounds"] == ref_stats["rounds"],
-          f"{name}: the step total or the rounds differ")
-    rec = segment_rounds(name, calls, card)
-    rec.update(max_abs_dt=dt, mean_steps=stats["mean_steps"])
-    return rec, calls
+    return bad, dt
+
+
+def march_against_plain(name, call):
+    """One trace through the kernel as the main path runs it
+    (wavefront.trace without work counters: the instance that the main
+    path launches and march_ms times), once more with the work counters
+    (the counting instance), and once through trace_plain on the card, on
+    the same inputs: for both kernel runs the tri ids, the bits of t/u/v
+    and every ray's steps must equal the plain version's, and no ray may
+    be truncated by either version. Returns (kernel run's stats, steps and
+    work counters, the plain version's stats, max |dt|)."""
+    grid, lk, rays, rpi, any_hit, coherent = call
+    want_steps = torch.empty(rays.count, dtype=torch.int32, device=DEV)
+    want = wavefront.trace_plain(grid, lk, rays, rpi, any_hit,
+                                 steps=want_steps)
+    plain_stats = dict(wavefront.last_trace_stats)
+    steps = torch.empty_like(want_steps)
+    got = wavefront.trace(grid, lk, rays, rpi, any_hit, coherent=coherent,
+                          steps=steps)
+    stats = dict(wavefront.last_trace_stats)
+    work = torch.zeros(5, dtype=torch.int64, device=DEV)
+    work_steps = torch.empty_like(want_steps)
+    got_work = wavefront.trace(grid, lk, rays, rpi, any_hit,
+                               coherent=coherent, steps=work_steps,
+                               work=work)
+    work_stats = dict(wavefront.last_trace_stats)
+    bad, dt = hits_bits_diff(got, want)
+    same_steps = torch.equal(steps, want_steps)
+    bad_w, _ = hits_bits_diff(got_work, want)
+    same_w = torch.equal(work_steps, want_steps)
+    print(f"[march] {name} ({MARCH_MODE_NAMES[wavefront.kernel_mode(grid, lk)]}"
+          f", {rays.count} rays): kernel (main-path instance) against "
+          f"trace_plain on every ray: "
+          f"{'tri ids and the bits of t/u/v equal' if not bad else f'{bad} DIFFER'}"
+          f", steps {'equal' if same_steps else 'DIFFER'} "
+          f"({stats['mean_steps']} against {plain_stats['mean_steps']} a "
+          f"ray), truncated {stats['truncated_rays']} and "
+          f"{plain_stats['truncated_rays']}, rounds {stats['rounds']} and "
+          f"{plain_stats['rounds']}; max |dt| {dt}; counting instance: "
+          f"{'hits equal' if not bad_w else f'{bad_w} DIFFER'}, steps "
+          f"{'equal' if same_w else 'DIFFER'}, truncated "
+          f"{work_stats['truncated_rays']}", flush=True)
+    check(not bad and same_steps, f"{name}: the march kernel differs from "
+          f"trace_plain ({bad}, steps equal: {same_steps})")
+    check(not bad_w and same_w, f"{name}: the march kernel's counting "
+          f"instance differs from trace_plain ({bad_w}, steps equal: "
+          f"{same_w})")
+    check(stats["truncated_rays"] == work_stats["truncated_rays"]
+          == plain_stats["truncated_rays"] == 0, f"{name}: rays were "
+          f"truncated")
+    return stats, steps, [int(x) for x in work.tolist()], plain_stats, dt
+
+
+def march_record(name, call, card):
+    """The kernel against trace_plain on one recorded trace of a wave; its
+    time alone (back-to-back launches) at the trace's refill threshold
+    and at MARCH_REFILLS, the plain version's time, the work this trace's
+    data needs (the kernel's counters), SIMD efficiency and the bound."""
+    grid, lk, rays, rpi, any_hit, coherent = call
+    refill = wavefront.REFILL[coherent]
+    mode = wavefront.kernel_mode(grid, lk)
+    stats, steps, work, plain_stats, dt = march_against_plain(name, call)
+    tests, rows, exits, loads, warp_iters = work
+    n = rays.count
+    step_total = int(steps.sum())
+    started = int((steps > 0).sum())
+    ms, (per_sm, blocks) = march_ms(call)
+    by_refill = {r: march_ms(call, refill=r)[0] for r in MARCH_REFILLS}
+    plain_ms = cuda_ms(lambda: wavefront.trace_plain(grid, lk, rays, rpi,
+                                                     any_hit),
+                       iters=1, warmup=0)
+    ops = (tests * MARCH_OPS_PER_TEST + exits * MARCH_OPS_PER_EXIT
+           + n * MARCH_OPS_PER_RAY + started * MARCH_OPS_PER_START)
+    ray_bytes = n * MARCH_RAY_BYTES
+    tbytes = table_bytes(grid, mode)
+    ops_ms = ops / FP32_PEAK * 1e3
+    # The bytes a trace provably moves: its rays in and its hits and steps
+    # out. The rows of the tables that its rays visit are not counted
+    # (which rows they are is not measured); the whole tables stand
+    # beside the bound as a ceiling on them, outside it.
+    bytes_ms = ray_bytes / HBM_RATE * 1e3
+    gathered = (rows * MARCH_ROW_BYTES[mode]
+                + (loads + started) * MARCH_CELL_BYTES[mode])
+    rec = dict(mode=MARCH_MODE_NAMES[mode], rays=n, ms=ms, plain_ms=plain_ms,
+               ms_by_refill=by_refill, refill=refill, coherent=coherent,
+               blocks_per_sm=per_sm, blocks=blocks,
+               bound_ms=max(ops_ms, bytes_ms),
+               bound_by="operations" if ops_ms >= bytes_ms else "bytes",
+               bound_ops_ms=ops_ms, bound_bytes_ms=bytes_ms,
+               table_bytes_ms=tbytes / HBM_RATE * 1e3,
+               tests=tests, rows=rows, exits=exits, loads=loads,
+               started=started, alive_iters=step_total,
+               warp_iters=warp_iters,
+               simd_efficiency=step_total / max(32 * warp_iters, 1),
+               gathered_bytes=gathered,
+               gathered_ms=gathered / HBM_RATE * 1e3,
+               mean_steps=stats["mean_steps"], max_steps=int(steps.max()),
+               plain_rounds=plain_stats["rounds"], max_abs_dt=dt)
+    print(f"[march] {name} ({rec['mode']}, {card}): kernel {ms:.4f} ms "
+          f"(one launch, {MARCH_ITERS} back to back, coherent {coherent}: "
+          f"refill below {refill} live lanes; {blocks} blocks, {per_sm} an "
+          f"SM) "
+          f"against the plain version {plain_ms:.1f} ms "
+          f"({plain_stats['rounds']} rounds); by refill threshold "
+          f"{ {r: round(x, 4) for r, x in by_refill.items()} }; bound "
+          f"{rec['bound_ms']:.4f} ms by {rec['bound_by']} (operations "
+          f"{ops_ms:.4f}; bytes, rays in and hits out, {bytes_ms:.4f}; "
+          f"not in the bound: the whole tables {rec['table_bytes_ms']:.4f}, "
+          f"a ceiling on the rows read); "
+          f"{step_total} alive iterations (max {rec['max_steps']} a ray), "
+          f"{warp_iters} warp iterations: SIMD efficiency "
+          f"{rec['simd_efficiency']:.4f}; {tests} refs tested, {rows} row "
+          f"gathers, {exits} cell exits, {loads} cell fetches, {started} "
+          f"rays started; {gathered} bytes gathered in sectors = "
+          f"{rec['gathered_ms']:.4f} ms at {HBM_RATE / 1e12:.2f} TB/s",
+          flush=True)
+    return rec
 
 
 def per_row_check(name, call):
-    """One round-0 segment on the same grid with one ref row more (the
-    kernel's per-row packed mode): kernel against plain, bit-equal."""
-    grid, lk, st, rpi, any_hit, cap = call
+    """The same trace on the same grid with one ref row more (the
+    kernel's per-row packed mode): kernel against trace_plain."""
+    grid, lk, rays, rpi, any_hit, coherent = call
     odd = grid.replace(ref_tris=torch.cat([grid.ref_tris,
                                            grid.ref_tris[:1]]))
     check(wavefront.kernel_mode(odd, lk) == 1, "the padded grid is not "
           "per-row")
-    got, live = wavefront.segment(odd, lk, st, rpi, any_hit, cap)
-    want, plive = wavefront.segment_plain(odd, lk, st, rpi, any_hit, cap)
-    ints, err, bits = state_diff(got, want)
-    print(f"[segment] {name}, per-row packed mode, round 0 "
-          f"({st['alive'].shape[0]} rays, cap {cap}): integers differ in "
-          f"{ints}, floats not bit-equal in {bits}, max |d| {err}",
-          flush=True)
-    check(not ints and not bits and int(live) == int(plive),
-          f"{name}: the per-row kernel differs from its plain version")
-    return err
+    return march_against_plain(f"{name}, per-row packed mode",
+                               (odd, lk, rays, rpi, any_hit, coherent))[-1]
+
+
+def march_ptxas():
+    """ptxas's registers, stack frame and spills for each march instance
+    (mode / hit kind, '+work' for the counting instances), from the
+    package's build log; empty when the library came from an earlier
+    build."""
+    out, name = {}, None
+    modes = {"0": "quad", "1": "rows", "2": "uniform"}
+    for ln in _build.last_build.get("log", "").splitlines():
+        if "Compiling entry function" in ln and "march_kernel" in ln:
+            m, h, w = ln.split("march_kernelILi")[1].split("EEEv")[0].split(
+                "ELb")
+            name = (f"{modes[m]}/{'any' if h == '1' else 'closest'}"
+                    f"{'+work' if w == '1' else ''}")
+            out[name] = {}
+        elif name and "bytes stack frame" in ln:
+            nums = [int(x) for x in ln.split() if x.isdigit()]
+            out[name].update(stack=nums[0], spill_stores=nums[1],
+                             spill_loads=nums[2])
+        elif name and "Used" in ln and "registers" in ln:
+            out[name]["registers"] = int(ln.split("Used")[1].split()[0])
+            name = None
+    return out
 
 
 def structures_phase(v, tris, rays, card):
@@ -1157,25 +1230,47 @@ def structures_phase(v, tris, rays, card):
           f"(tri, voxel) and (cell, voxel) pairs: passed in "
           f"{irr['check_irregular_s']:.2f} s", flush=True)
     # The main path of the structures: every count from zero, then the
-    # irregular primary frame, the irregular AO wave and (below) the
-    # uniform primary frame through the user's entry points.
+    # irregular primary frame, the irregular AO wave, the irregular path
+    # bounce 1 and (below) the uniform primary frame through the user's
+    # entry points; each call of wavefront.trace recorded, to count the
+    # launches a trace.
     reset_launches()
+    launches, traces, last_call = {}, {}, {}
     irr_frame = lambda: s_irr.trace(rays, coherent=True)  # noqa: E731
-    irr["primary"], hits = wave_record(
-        "irregular primary 1024x1024", rays, irr_frame, tris, card,
-        any_hit=False)
-    seg_launches = {"irregular primary": wavefront.launches[
-        "wavefront_segment"]}
+    with trace_calls() as calls:
+        irr["primary"], hits = wave_record(
+            "irregular primary 1024x1024", rays, irr_frame, tris, card,
+            any_hit=False)
+    launches["irregular primary"] = wavefront.launches["wavefront_march"]
+    traces["irregular primary"], last_call["irregular primary"] = (
+        len(calls), calls[-1])
     p, n, found = hit_points_normals(rays, hits, tris.n)
     gen = torch.Generator(device=DEV).manual_seed(0)
     wave = integrators.ao_rays(p, n, found,
                                integrators.default_ao_distance(s_irr), gen)
     irr_ao = lambda: integrators.trace_sorted(  # noqa: E731
         s_irr, wave, any_hit=True)
-    irr["ao_wave"], _ = wave_record("irregular AO wave", wave, irr_ao, tris,
-                                    card, any_hit=True)
-    seg_launches["irregular AO wave"] = (wavefront.launches[
-        "wavefront_segment"] - sum(seg_launches.values()))
+    with trace_calls() as calls:
+        irr["ao_wave"], _ = wave_record("irregular AO wave", wave, irr_ao,
+                                        tris, card, any_hit=True)
+    launches["irregular AO wave"] = (wavefront.launches["wavefront_march"]
+                                     - sum(launches.values()))
+    traces["irregular AO wave"], last_call["irregular AO wave"] = (
+        len(calls), calls[-1])
+    # Path bounce 1 from the primary hits, made as path_trace makes its
+    # bounces and traced as it traces them: incoherent closest hit.
+    bounce = integrators._spawn(p, n, cosine_hemisphere(n, gen), 0.0,
+                                torch.where(found, float("inf"), 0.0))
+    irr_bounce = lambda: integrators.trace_sorted(  # noqa: E731
+        s_irr, bounce, cal_key="path")
+    with trace_calls() as calls:
+        irr["path_bounce"], _ = wave_record(
+            "irregular path bounce 1", bounce, irr_bounce, tris, card,
+            any_hit=False, min_hit=0.0)
+    launches["irregular path bounce"] = (
+        wavefront.launches["wavefront_march"] - sum(launches.values()))
+    traces["irregular path bounce"], last_call["irregular path bounce"] = (
+        len(calls), calls[-1])
     irr["peak_mb"] = (torch.cuda.max_memory_allocated() - base_mem) / 2**20
     t0 = time.perf_counter()
     s_dyn = RenderSession.create(tris, BuildParams.dynamic(),
@@ -1199,42 +1294,55 @@ def structures_phase(v, tris, rays, card):
                ref_capacity=s_uni.grid.ref_ids.shape[0])
     uni.update(build_record("uniform", s_uni, tris, card))
     uni_frame = lambda: s_uni.trace(rays, coherent=True)  # noqa: E731
-    uni["primary"], _ = wave_record("uniform primary 1024x1024", rays,
-                                    uni_frame, tris, card, any_hit=False)
-    seg_launches["uniform primary"] = (wavefront.launches[
-        "wavefront_segment"] - sum(seg_launches.values()))
+    before = wavefront.launches["wavefront_march"]
+    with trace_calls() as calls:
+        uni["primary"], _ = wave_record("uniform primary 1024x1024", rays,
+                                        uni_frame, tris, card, any_hit=False)
+    launches["uniform primary"] = wavefront.launches["wavefront_march"] - before
+    traces["uniform primary"], last_call["uniform primary"] = (
+        len(calls), calls[-1])
     rec["uniform"] = uni
     # What the main path launched (counts from zero, read before any
-    # comparison with the plain version), and one call of each wave
-    # under the profiler: device kernels, torch ops, segment kernels.
-    rec["segment_launches"] = seg_launches
-    launches = sum(seg_launches.values())
+    # comparison with the plain version): one march launch a trace.
+    rec["march_launches"], rec["traces"] = launches, traces
+    print(f"[march] wavefront_march launches on the main path "
+          f"{sum(launches.values())}, by wave {launches}, for {traces} "
+          f"traces", flush=True)
+    for name, k in launches.items():
+        check(k > 0 and k == traces[name], f"{name}: {k} march launches "
+              f"for {traces[name]} traces")
+    # Each wave under the profiler: device kernels, torch ops, march (and
+    # no segment) kernels a call, device busy and idle share.
     census = {}
     for name, fn in (("irregular primary", irr_frame),
                      ("irregular AO wave", irr_ao),
+                     ("irregular path bounce", irr_bounce),
                      ("uniform primary", uni_frame)):
-        census[name] = launch_census(fn)
-    rec["launch_census"] = census
-    print(f"[segment] wavefront_segment launches on the main path "
-          f"{launches}, by wave {seg_launches}; one call of each wave: "
-          f"{census}", flush=True)
-    for name, n_seg in seg_launches.items():
-        check(n_seg > 0, f"{name} did not launch wavefront_segment")
-    # Each wave once more through the kernel and through the plain
-    # version, round by round on the same inputs.
-    seg = {}
-    seg_calls = {}
-    for name, fn in (("irregular primary", irr_frame),
-                     ("irregular AO wave", irr_ao),
-                     ("uniform primary", uni_frame)):
-        seg[name], seg_calls[name] = segment_record(name, fn, card)
-    row_err = max(per_row_check("irregular primary",
-                                seg_calls["irregular primary"][0]),
-                  per_row_check("irregular AO wave",
-                                seg_calls["irregular AO wave"][0]))
-    del seg_calls
-    rec["segment"] = {k: {x: y for x, y in r.items() if x != "rounds"}
-                      for k, r in seg.items()}
+        census[name] = c = launch_census(fn)
+        print(f"[march] {name}: host wall {span(c['wall_ms'])} ms per "
+              f"synced call; {c['device_kernels']:.0f} device kernels a call "
+              f"({c['torch_ops']:.0f} torch ops, {c['march_kernels']:.0f} "
+              f"march, {c['segment_kernels']:.0f} segment kernels); device "
+              f"busy {c['busy_ms']:.3f} ms a call, march kernel "
+              f"{c['march_ms']:.4f} ms of it; idle share "
+              f"{c['idle_share']:.3f} ({card})", flush=True)
+        check(c["march_kernels"] == 1 and c["segment_kernels"] == 0,
+              f"{name}: {c['march_kernels']} march and "
+              f"{c['segment_kernels']} segment kernels a call")
+    rec["census"] = census
+    # Each wave's last trace once more through the kernel and through the
+    # plain version on the same inputs, timed; the irregular waves also in
+    # the per-row mode.
+    march = {name: march_record(name, call, card)
+             for name, call in last_call.items()}
+    row_dt = max(per_row_check(name, last_call[name])
+                 for name in ("irregular primary", "irregular AO wave"))
+    del last_call
+    ptx = march_ptxas()
+    print(f"[march] ptxas (registers, stack frame, spill stores/loads): "
+          f"{ptx or 'not available (the library came from an earlier build)'}",
+          flush=True)
+    rec["march"], rec["march_ptxas"] = march, ptx
 
     # The card's builds against the CPU's: integer tables equal.
     small = {}
@@ -1256,9 +1364,9 @@ def structures_phase(v, tris, rays, card):
     rec["phase_s"] = time.perf_counter() - t_phase
     print(f"[structures] phase 12 took {rec['phase_s']:.1f} s", flush=True)
     print(json.dumps({"structures": rec}), flush=True)
-    seg_entry = dict(launches=launches, seg=seg, row_err=row_err,
-                     census=census)
-    return s_irr, wave, s_uni, seg_entry
+    march_rec = dict(launches=sum(launches.values()), march=march,
+                     row_dt=row_dt, census=census, ptxas=ptx)
+    return s_irr, wave, s_uni, march_rec
 
 
 def hits_against(name, hits, ref):
@@ -1840,31 +1948,45 @@ def micro_phase(card, dev):
     return list(entries.values())
 
 
-def segment_entry(seg):
-    """The kernels line's wavefront_segment entry: ms, plain_ms and the
-    bound summed over the irregular primary frame's rounds (the main
-    path's first wave); the AO wave's and the uniform frame's beside
-    them. No single PyTorch call marches a ray: library_ms is null."""
-    prim = seg["seg"]["irregular primary"]
-    ao = seg["seg"]["irregular AO wave"]
-    uni = seg["seg"]["uniform primary"]
-    err = max(r["max_abs_err"] for r in seg["seg"].values())
+def march_entry(m):
+    """The kernels line's wavefront_march entry: the irregular primary
+    frame's trace (the main path's first wave), the AO wave's, the path
+    bounce's and the uniform frame's beside it. Every ray is compared bit for bit, so
+    max_abs_err is the largest |dt| (0 when equal). No single PyTorch
+    call marches a ray: library_ms is null."""
+    prim = m["march"]["irregular primary"]
+    ao = m["march"]["irregular AO wave"]
+    bounce = m["march"]["irregular path bounce"]
+    uni = m["march"]["uniform primary"]
+    dt = max([r["max_abs_dt"] for r in m["march"].values()] + [m["row_dt"]])
+    census = m["census"]
     return dict(
-        name="wavefront_segment", route="cuda", source=SEG_SOURCE,
-        replaces=SEG_REPLACES, launches=seg["launches"],
-        max_abs_err=max(err, seg["row_err"]), ms=prim["ms"],
-        plain_ms=prim["plain_ms"], bound_ms=prim["bound_ms"],
+        name="wavefront_march", route="cuda", source=MARCH_SOURCE,
+        replaces=MARCH_REPLACES, launches=m["launches"], max_abs_err=dt,
+        ms=prim["ms"], plain_ms=prim["plain_ms"], bound_ms=prim["bound_ms"],
         bound_by=prim["bound_by"], library_ms=None,
-        rounds=len(prim["rounds"]), gathered_ms=prim["gathered_ms"],
-        ms_in_frame={k: c["segment_ms"] for k, c in seg["census"].items()},
-        max_abs_dt=max(r["max_abs_dt"] for r in seg["seg"].values()),
+        bound_ops_ms=prim["bound_ops_ms"],
+        bound_bytes_ms=prim["bound_bytes_ms"],
+        table_bytes_ms=prim["table_bytes_ms"],
+        gathered_ms=prim["gathered_ms"],
+        simd_efficiency=prim["simd_efficiency"], refill=prim["refill"],
+        ms_by_refill=prim["ms_by_refill"],
+        ms_in_frame={k: c["march_ms"] for k, c in census.items()},
         ms_ao=ao["ms"], plain_ms_ao=ao["plain_ms"],
-        bound_ms_ao=ao["bound_ms"], gathered_ms_ao=ao["gathered_ms"],
+        bound_ms_ao=ao["bound_ms"], bound_by_ao=ao["bound_by"],
+        simd_efficiency_ao=ao["simd_efficiency"],
+        ms_bounce=bounce["ms"], plain_ms_bounce=bounce["plain_ms"],
+        bound_ms_bounce=bounce["bound_ms"],
+        bound_by_bounce=bounce["bound_by"],
+        simd_efficiency_bounce=bounce["simd_efficiency"],
+        ms_by_refill_bounce=bounce["ms_by_refill"],
         ms_uniform=uni["ms"], plain_ms_uniform=uni["plain_ms"],
-        bound_ms_uniform=uni["bound_ms"],
-        gathered_ms_uniform=uni["gathered_ms"],
+        bound_ms_uniform=uni["bound_ms"], bound_by_uniform=uni["bound_by"],
+        simd_efficiency_uniform=uni["simd_efficiency"],
         device_kernels_per_frame={k: c["device_kernels"]
-                                  for k, c in seg["census"].items()})
+                                  for k, c in census.items()},
+        idle_share={k: c["idle_share"] for k, c in census.items()},
+        ptxas=m["ptxas"])
 
 
 def main(profile_path=False, with_variants=False) -> int:
@@ -2024,7 +2146,7 @@ def main(profile_path=False, with_variants=False) -> int:
     micro_kernels = micro_phase(card, dev)
 
     # 12. the paper's structures: irregular and uniform grids, wavefront
-    s_irr, irr_wave, s_uni, seg = structures_phase(v, tris, rays, card)
+    s_irr, irr_wave, s_uni, march = structures_phase(v, tris, rays, card)
 
     # 13. the packet grid's options, the OBJ loader, sharding, the CLI
     opts, opt_launches = options_phase(v, f, tris, rays, hits, grid, session,
@@ -2087,7 +2209,7 @@ def main(profile_path=False, with_variants=False) -> int:
              blocks_skipped=ao["bound"]["blocks_skipped"],
              bound_ms_no_fma=ao["bound"]["bound_ms_no_fma"]),
         *micro_kernels,
-        segment_entry(seg)]
+        march_entry(march)]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -2101,7 +2223,8 @@ if __name__ == "__main__":
                     metavar="PATH", help="add phase 6; write the full "
                     "per-op device times to PATH")
     ap.add_argument("--variants", action="store_true",
-                    help="also time the sweep at other chunk sizes")
+                    help="also time the sweep at other chunk sizes and "
+                    "the wavefront march at other launch bounds")
     try:
         a = ap.parse_args()
         sys.exit(main(a.profile, a.variants))

@@ -788,11 +788,16 @@ def irregular_lookup(grid: IrregularGrid, voxel):
     return grid.lookup(voxel)
 
 
-def trace_irregular_fast(grid: IrregularGrid, rays, any_hit: bool = False):
-    """Compacted round-based wavefront trace on the packed tables."""
+def trace_irregular_fast(grid: IrregularGrid, rays, any_hit: bool = False,
+                         coherent: bool = False):
+    """Wavefront trace on the packed tables (ops/wavefront.trace): one
+    launch of the march kernel on the card, the compacted rounds of the
+    plain version on the CPU. coherent: camera-ordered rays (picks the
+    kernel's refill threshold; no result changes)."""
     from ..ops import wavefront
 
-    return wavefront.trace(grid, irregular_lookup, rays, any_hit=any_hit)
+    return wavefront.trace(grid, irregular_lookup, rays, any_hit=any_hit,
+                           coherent=coherent)
 
 
 def trace_irregular(grid: IrregularGrid, rays, refs_per_iter: int = 8,

@@ -184,11 +184,16 @@ def uniform_lookup(grid: UniformGrid, voxel):
     return cell, voxel, voxel
 
 
-def trace_uniform_fast(grid: UniformGrid, rays, any_hit: bool = False):
-    """Compacted round-based wavefront trace (host-orchestrated)."""
+def trace_uniform_fast(grid: UniformGrid, rays, any_hit: bool = False,
+                       coherent: bool = False):
+    """Wavefront trace (ops/wavefront.trace): one launch of the march
+    kernel on the card, the compacted rounds of the plain version
+    (host-orchestrated) on the CPU. coherent: camera-ordered rays (picks
+    the kernel's refill threshold; no result changes)."""
     from ..ops import wavefront
 
-    return wavefront.trace(grid, uniform_lookup, rays, any_hit=any_hit)
+    return wavefront.trace(grid, uniform_lookup, rays, any_hit=any_hit,
+                           coherent=coherent)
 
 
 def trace_uniform(grid: UniformGrid, rays, refs_per_iter: int = 8,

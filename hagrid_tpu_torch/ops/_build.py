@@ -68,7 +68,8 @@ def build() -> pathlib.Path:
     """Compile csrc/*.cu unless the library for these sources exists."""
     out = library_path()
     if out.exists():
-        last_build.update(seconds=0.0, path=str(out), log="(cached)")
+        if last_build.get("path") != str(out):   # keep this process's log
+            last_build.update(seconds=0.0, path=str(out), log="(cached)")
         return out
     out.parent.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
@@ -119,8 +120,8 @@ def load():
         lib.hagrid_dots_fp32.restype = i
         lib.hagrid_dots_bf16.argtypes = [p, p, p, p, i, i, p]
         lib.hagrid_dots_bf16.restype = i
-        lib.hagrid_wavefront_segment.argtypes = [p, i, i, p]
-        lib.hagrid_wavefront_segment.restype = i
+        lib.hagrid_wavefront_march.argtypes = [p, i, i, p, p]
+        lib.hagrid_wavefront_march.restype = i
         lib.hagrid_sweep_occupancy.argtypes = [i, i, p]
         lib.hagrid_sweep_occupancy.restype = i
         lib.hagrid_error_string.argtypes = [i]

@@ -1,23 +1,25 @@
-"""Step-synchronous wavefront traversal with ray compaction (port of
-hagrid_tpu/ops/wavefront.py).
+"""Wavefront traversal (port of hagrid_tpu/ops/wavefront.py).
 
-All rays advance in lockstep on masked tensors: each iteration every live
-ray either tests a chunk of its current cell's refs (Moller-Trumbore over
-the chunk) or steps past the whole cell, leaving by the cell's integer
-bbox (the irregular grid's "skip by cell, not voxel" rule). Every update
-is masked by `alive`, so a dead ray never changes: iterations past a
-ray's end are no-ops, and the hits do not depend on how many run.
+A ray marches through the grid one iteration at a time: each iteration it
+either tests a chunk of its current cell's refs (Moller-Trumbore over the
+chunk) or steps past the whole cell, leaving by the cell's integer bbox
+(the irregular grid's "skip by cell, not voxel" rule). A ray's update
+reads only that ray's state, and a dead ray is a fixed point: iterations
+past a ray's end are no-ops, and the hits do not depend on how many run.
 
-`trace` runs in rounds: a segment of a capped number of iterations with
-no host read, one read of the live count, a scatter of the batch's
-results and a compaction of the survivors into a power-of-two batch, so
-the cost follows the live rays and not the slowest one. A segment
-(`segment`) is one CUDA kernel on the card (csrc/wavefront.cu, one thread
-per ray, the state in registers for all its iterations; it replaces the
-reference's compiled `_jit_segment` loop) and the lockstep loop
-`segment_plain` on the CPU. `launches` counts the kernel's launches.
-`trace_wavefront` (no compaction, any lookup callable) stays a lockstep
-loop of torch ops on every device.
+`trace` runs on each device as follows:
+- CUDA tensors: one launch of the march kernel (csrc/wavefront.cu), in
+  which persistent warps march every ray from its slab test to its end
+  and refill their dead lanes with new rays; no rounds, no host read
+  before the launch and one after it. `launches` counts its launches.
+- CPU tensors: the plain version `trace_plain`, the reference's rounds:
+  a segment of a capped number of lockstep iterations of torch ops
+  (`segment_plain`), one read of the live count, a scatter of the batch's
+  results and a compaction of the survivors into a power-of-two batch,
+  so the cost follows the live rays and not the slowest one.
+The two agree on the hits and steps of every ray that the safety cap
+does not cut. `trace_wavefront` (no compaction, any lookup callable)
+stays a lockstep loop of torch ops on every device.
 
 Grid protocol: a grid exposes `.cell_starts`, `.ref_ids`, `.bbox_lo/hi`,
 `.tris` and `.fine_dims`, and `lookup_fn(grid, voxel i32[N, 3]) -> (cell,
@@ -43,7 +45,7 @@ _OUT_KEYS = ("best_t", "best_id", "best_u", "best_v", "steps")
 _CHECK_EVERY = 16
 
 # Kernel launches, counted where the kernel is launched.
-launches = {"wavefront_segment": 0}
+launches = {"wavefront_march": 0}
 
 
 def _geometry(grid):
@@ -239,32 +241,32 @@ def segment_plain(grid, lookup_fn, state: dict, refs_per_iter: int,
 
 # The kernel's lookups (csrc/wavefront.cu's kMode).
 _QUAD, _ROWS, _UNIFORM = 0, 1, 2
-# The state the kernel writes, and (in the order of SegArgs) all it reads.
-_MARCH_KEYS = ("alive", "cursor", "end", "cmin", "cmax", "t_cur", "best_t",
-               "best_id", "best_u", "best_v", "steps")
-_STATE_DTYPES = dict(alive=torch.bool, cursor=torch.int32, end=torch.int32,
-                     cmin=torch.int32, cmax=torch.int32, t_cur=torch.float32,
-                     org=torch.float32, dir=torch.float32,
-                     tmin=torch.float32, tmax=torch.float32,
-                     best_t=torch.float32, best_id=torch.int32,
-                     best_u=torch.float32, best_v=torch.float32,
-                     steps=torch.int32)
+# The march kernel's refill threshold, by the wave's coherence: a warp's
+# empty lanes take new rays once fewer than this many of its 32 lanes are
+# marching (32: every iteration a lane ends in; 1: only when the whole
+# warp is done). Measured on the Sponza-scale waves (chip_smoke.py phase
+# 12, PERF.md): a coherent warp loses its coherence to refilled lanes, so
+# camera-ordered waves refill whole warps only; incoherent waves (an
+# any-hit AO wave and a closest-hit path bounce alike) refill once a
+# quarter of the lanes are done.
+REFILL = {True: 1, False: 24}
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
 
-class _SegArgs(ctypes.Structure):
-    """csrc/wavefront.cu's SegArgs, field for field."""
+class _MarchArgs(ctypes.Structure):
+    """csrc/wavefront.cu's MarchArgs, field for field."""
     _fields_ = (
-        [("n", _I), ("cap", _I), ("refs_per_iter", _I), ("no_tris", _I),
-         ("dims", _I * 3), ("geom", _P), ("top_info", _P), ("n_top", _I),
-         ("n_erec", _I), ("n_ref_rows", _I), ("levels", _I),
-         ("top_dims", _I * 3), ("erec", _P), ("ref_tris", _P),
-         ("cell_starts", _P), ("ref_ids", _P), ("v0", _P), ("e1", _P),
-         ("e2", _P), ("n_starts", _I), ("n_ref_ids", _I), ("n_tris", _I),
-         ("pad_", _I)]
-        + [(k, _P) for k in _STATE_DTYPES]   # in the struct's order
-        + [(k + "_o", _P) for k in _MARCH_KEYS]
-        + [("live", _P), ("work", _P)])
+        [("n", _I), ("refs_per_iter", _I), ("no_tris", _I), ("refill", _I),
+         ("dims", _I * 3), ("cap_base", _I), ("bbox_lo", _P),
+         ("bbox_hi", _P), ("max_cell_refs", _P), ("top_info", _P),
+         ("n_top", _I), ("n_erec", _I), ("n_ref_rows", _I), ("levels", _I),
+         ("top_dims", _I * 3), ("pad0_", _I), ("erec", _P),
+         ("ref_tris", _P), ("cell_starts", _P), ("ref_ids", _P),
+         ("v0", _P), ("e1", _P), ("e2", _P), ("n_starts", _I),
+         ("n_ref_ids", _I), ("n_tris", _I), ("pad1_", _I)]
+        + [(k, _P) for k in ("org", "dir", "tmin", "tmax")]
+        + [(k, _P) for k in ("t", "id", "u", "v", "steps")]
+        + [("stats", _P), ("work", _P)])
 
 
 def kernel_mode(grid, lookup_fn) -> int:
@@ -283,29 +285,8 @@ def kernel_mode(grid, lookup_fn) -> int:
         f"grid.uniform.uniform_lookup")
 
 
-def segment(grid, lookup_fn, state: dict, refs_per_iter: int, any_hit: bool,
-            cap: int, work=None):
-    """One segment of `cap` march iterations: the CUDA kernel for CUDA
-    tensors, the plain version `segment_plain` for CPU tensors; anything
-    else raises. Returns (new state, live count as an i32 tensor). work:
-    optional i64[4] on the card, to which the kernel adds the refs it
-    tested, the rows it gathered, the cell exits it computed and the
-    cells it fetched (the plain version counts nothing)."""
-    dev = state["alive"].device
-    if dev.type == "cpu":
-        if work is not None:
-            raise ValueError("the plain version counts no work")
-        return segment_plain(grid, lookup_fn, state, refs_per_iter, any_hit,
-                             cap)
-    if dev.type != "cuda":
-        raise ValueError(f"the wavefront segment runs on CUDA or CPU "
-                         f"tensors, not {dev}")
-    return _segment_cuda(grid, lookup_fn, state, refs_per_iter, any_hit, cap,
-                         work)
-
-
 def _table(x: torch.Tensor, dtype, dev, rows16: bool = False):
-    """A grid table as the kernel reads it: contiguous, on `dev`, and with
+    """A tensor as the kernel reads it: contiguous, on `dev`, and with
     rows16 16-byte aligned (the kernel loads rows as 16-byte vectors)."""
     if x.dtype != dtype or x.device != dev:
         raise ValueError(f"a grid table is {x.dtype} on {x.device}, the "
@@ -316,50 +297,66 @@ def _table(x: torch.Tensor, dtype, dev, rows16: bool = False):
     return x
 
 
-def kernel_args(grid, lookup_fn, state, refs_per_iter, cap, work=None):
-    """The kernel's arguments for one segment, on the state's device:
-    (mode, SegArgs, output state tensors, live count, the tensors the
-    arguments point into, which must outlive the launch). Checks every
-    state field's type, shape and device and raises on what the kernel
-    does not take."""
+def march_args(grid, lookup_fn, rays: Rays, refs_per_iter: int,
+               refill: int = REFILL[False], steps=None, work=None):
+    """The march kernel's arguments for one trace, on the rays' device:
+    (mode, MarchArgs, outputs {t, id, u, v, steps}, stats i64[4] (the ray
+    counter, truncated rays, step total, hard cap), the tensors the
+    arguments point into, which must outlive the launch). Checks the
+    rays' and tables' types, shapes and devices and raises on what the
+    kernel does not take; reads nothing from the device."""
     mode = kernel_mode(grid, lookup_fn)
-    dev = state["alive"].device
-    n = state["alive"].shape[0]
+    dev = rays.org.device
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"the wavefront march runs on CUDA or CPU tensors, "
+                         f"not {dev}")
+    n = rays.count
     ins = {}
-    for k, dt in _STATE_DTYPES.items():
-        x = state[k]
-        shape = (n, 3) if k in ("cmin", "cmax", "org", "dir") else (n,)
-        if x.dtype != dt or x.device != dev or tuple(x.shape) != shape:
-            raise ValueError(f"state[{k!r}] must be {dt}{list(shape)} on "
+    for k in ("org", "dir", "tmin", "tmax"):
+        x = getattr(rays, k)
+        shape = (n, 3) if k in ("org", "dir") else (n,)
+        if (x.dtype != torch.float32 or x.device != dev
+                or tuple(x.shape) != shape):
+            raise ValueError(f"rays.{k} must be float32{list(shape)} on "
                              f"{dev}, got {x.dtype}{list(x.shape)} on "
                              f"{x.device}")
         ins[k] = x.contiguous()
+    if steps is None:
+        steps = torch.empty((n,), dtype=torch.int32, device=dev)
+    elif (steps.dtype != torch.int32 or steps.shape != (n,)
+          or steps.device != dev or not steps.is_contiguous()):
+        raise ValueError(f"steps must be a contiguous int32[{n}] on {dev}")
     if work is not None and (work.dtype != torch.int64
-                             or work.shape != (4,) or work.device != dev):
-        raise ValueError(f"work must be i64[4] on {dev}")
-    outs = {k: torch.empty_like(ins[k]) for k in _MARCH_KEYS}
-    live = torch.zeros((), dtype=torch.int32, device=dev)
-    # _geometry's cell size, without its blocking copy of the dims (a
-    # stream sync): the same division by the same values.
-    dims_f = torch.tensor(grid.fine_dims, dtype=torch.float32).to(
-        dev, non_blocking=True)
+                             or work.shape != (5,) or work.device != dev):
+        raise ValueError(f"work must be int64[5] on {dev}")
+    if not 1 <= int(refill) <= 32:
+        raise ValueError(f"refill must be in 1..32, got {refill}")
+    outs = dict(t=torch.empty((n,), dtype=torch.float32, device=dev),
+                id=torch.empty((n,), dtype=torch.int32, device=dev),
+                u=torch.empty((n,), dtype=torch.float32, device=dev),
+                v=torch.empty((n,), dtype=torch.float32, device=dev),
+                steps=steps)
+    stats = torch.zeros((4,), dtype=torch.int64, device=dev)
+    starts = _table(grid.cell_starts, torch.int32, dev)
+    max_refs = (starts[1:] - starts[:-1]).max()
     lo = _table(grid.bbox_lo, torch.float32, dev)
-    cs = (grid.bbox_hi - lo) / dims_f
-    geom = torch.cat([lo, cs, 1.0 / cs])
+    hi = _table(grid.bbox_hi, torch.float32, dev)
     tris = grid.tris
-    keep = [geom, *ins.values()]
+    keep = [max_refs, lo, hi, stats, *ins.values(), *outs.values()]
 
     def ptr(x):
         keep.append(x)
         return x.data_ptr()
 
-    a = _SegArgs(n=n, cap=int(cap), refs_per_iter=int(refs_per_iter),
-                 no_tris=int(tris.count == 0), geom=geom.data_ptr(),
-                 live=live.data_ptr(),
-                 work=None if work is None else work.data_ptr())
-    a.dims[:] = [int(d) for d in grid.fine_dims]
+    dims = [int(d) for d in grid.fine_dims]
+    a = _MarchArgs(n=n, refs_per_iter=int(refs_per_iter),
+                   no_tris=int(tris.count == 0), refill=int(refill),
+                   cap_base=8 * sum(dims) + 256, bbox_lo=lo.data_ptr(),
+                   bbox_hi=hi.data_ptr(), max_cell_refs=max_refs.data_ptr(),
+                   stats=stats.data_ptr(),
+                   work=None if work is None else work.data_ptr())
+    a.dims[:] = dims
     if mode == _UNIFORM:
-        starts = _table(grid.cell_starts, torch.int32, dev)
         refs = _table(grid.ref_ids, torch.int32, dev)
         a.cell_starts, a.n_starts = ptr(starts), starts.shape[0]
         a.ref_ids, a.n_ref_ids = ptr(refs), refs.shape[0]
@@ -379,28 +376,24 @@ def kernel_args(grid, lookup_fn, state, refs_per_iter, cap, work=None):
     for k, x in ins.items():
         setattr(a, k, x.data_ptr())
     for k, x in outs.items():
-        setattr(a, k + "_o", x.data_ptr())
-    return mode, a, outs, live, keep
+        setattr(a, k, x.data_ptr())
+    return mode, a, outs, stats, keep
 
 
-def _segment_cuda(grid, lookup_fn, state, refs_per_iter, any_hit, cap,
-                  work):
-    mode, a, outs, live, _keep = kernel_args(grid, lookup_fn, state,
-                                             refs_per_iter, cap, work)
-    if a.n == 0:
-        return dict(state), live
-    dev = state["alive"].device
+def launch_march(mode, args, any_hit: bool, stream=None):
+    """One launch of the march kernel's C entry point on `stream` (the
+    current stream by default); raises on a CUDA error. Returns (blocks
+    an SM, blocks launched). Counts no launch: `trace` does."""
+    if stream is None:
+        stream = torch.cuda.current_stream().cuda_stream
+    grid = (_I * 2)()
     lib = _build.load()
-    err = lib.hagrid_wavefront_segment(
-        ctypes.byref(a), mode, int(any_hit),
-        _P(torch.cuda.current_stream(dev).cuda_stream))
+    err = lib.hagrid_wavefront_march(ctypes.byref(args), mode, int(any_hit),
+                                     _P(stream), grid)
     if err:
-        raise RuntimeError(f"wavefront segment kernel launch failed: "
+        raise RuntimeError(f"wavefront march kernel launch failed: "
                            f"{lib.hagrid_error_string(err).decode()}")
-    launches["wavefront_segment"] += 1
-    out = dict(state)
-    out.update(outs)
-    return out, live
+    return grid[0], grid[1]
 
 
 def max_march_iters(fine_dims, max_refs_per_cell: int = 0,
@@ -466,17 +459,32 @@ def _pow2_at_least(n: int) -> int:
     return p
 
 
-def trace(grid, lookup_fn, rays: Rays, refs_per_iter: int = 2,
-          any_hit: bool = False, round_iters: int = 16,
-          min_batch: int = 8192) -> Hits:
-    """Round-based compacted wavefront trace (host-orchestrated).
+def _record(n: int, truncated: int, rounds: int, step_total: int,
+            hard_cap: int):
+    """last_trace_stats of a trace, and the warning of a cut one."""
+    if truncated:
+        warnings.warn(
+            f"wavefront.trace: safety cap {hard_cap} expired with "
+            f"{truncated} rays still marching; their hit records are "
+            f"partial (see ops/wavefront.last_trace_stats)")
+    last_trace_stats["truncated_rays"] = truncated
+    last_trace_stats["rounds"] = rounds
+    last_trace_stats["mean_steps"] = float(step_total) / max(n, 1)
 
-    Marches `round_iters` lockstep iterations, scatters results, compacts
-    the survivors into the next power-of-two batch (at least `min_batch`
-    rays), and doubles the cap once the batch stops shrinking; repeats
-    until no ray is alive. Host reads: the largest cell's ref count once,
-    the live count once a round, and the step total at the end.
-    """
+
+def trace_plain(grid, lookup_fn, rays: Rays, refs_per_iter: int = 2,
+                any_hit: bool = False, round_iters: int = 16,
+                min_batch: int = 8192, steps=None) -> Hits:
+    """The march kernel's plain version: the reference's round-based
+    compacted trace (host-orchestrated), on any device.
+
+    Marches `round_iters` lockstep iterations (`segment_plain`), scatters
+    results, compacts the survivors into the next power-of-two batch (at
+    least `min_batch` rays), and doubles the cap once the batch stops
+    shrinking; repeats until no ray is alive or the safety cap has run.
+    Host reads: the largest cell's ref count once, the live count once a
+    round, and the step total at the end. steps: optional int32[N] that
+    receives each ray's marched iterations."""
     n = rays.count
     dev = rays.org.device
     state = _init_state(grid, lookup_fn, rays)
@@ -490,18 +498,13 @@ def trace(grid, lookup_fn, rays: Rays, refs_per_iter: int = 2,
     rounds = 0
     while True:
         rounds += 1
-        state, live = segment(grid, lookup_fn, state, refs_per_iter, any_hit,
-                              min(cap, hard_cap))
+        state, live = segment_plain(grid, lookup_fn, state, refs_per_iter,
+                                    any_hit, min(cap, hard_cap))
         idx = state["idx"].long()
         for k in _OUT_KEYS:
             out[k][idx] = state[k]
         live = int(live)
         if live == 0 or cap >= hard_cap:
-            if live:
-                warnings.warn(
-                    f"wavefront.trace: safety cap {hard_cap} expired with "
-                    f"{live} rays still marching; their hit records are "
-                    f"partial (see ops/wavefront.last_trace_stats)")
             break
         new_size = min(max(_pow2_at_least(live), min_batch), size)
         if new_size < size:
@@ -513,7 +516,47 @@ def trace(grid, lookup_fn, rays: Rays, refs_per_iter: int = 2,
             size = new_size
         else:
             cap *= 2
-    last_trace_stats["truncated_rays"] = live
-    last_trace_stats["rounds"] = rounds
-    last_trace_stats["mean_steps"] = float(out["steps"].sum()) / max(n, 1)
+    if steps is not None:
+        steps.copy_(out["steps"])
+    _record(n, live, rounds, int(out["steps"].sum()), hard_cap)
     return _hits(out["best_t"], out["best_id"], out["best_u"], out["best_v"])
+
+
+def trace(grid, lookup_fn, rays: Rays, refs_per_iter: int = 2,
+          any_hit: bool = False, round_iters: int = 16,
+          min_batch: int = 8192, *, coherent: bool = False, steps=None,
+          work=None) -> Hits:
+    """Wavefront trace of `rays` through the grid: closest hit, or any
+    hit.
+
+    CUDA tensors: one launch of the march kernel (csrc/wavefront.cu),
+    which marches every ray from its slab test to its end; the round
+    arguments are not read. No host read before the launch, one after
+    it (truncated rays, step total, hard cap); `rounds` is 1. CPU tensors:
+    the plain version `trace_plain` (the reference's rounds). Any other
+    device, or a lookup the kernel does not know, raises.
+    coherent: the rays come in camera order (primaries); it picks the
+    kernel's refill threshold (REFILL) and changes no result.
+    steps: optional int32[N] that receives each ray's marched iterations.
+    work: optional int64[5] on the card (zeroed), to which the kernel adds
+    the refs it tested, the rows it gathered, the cell exits it computed,
+    the cells it fetched and its warp iterations; the plain version counts
+    no work."""
+    dev = rays.org.device
+    if dev.type == "cpu":
+        if work is not None:
+            raise ValueError("the plain version counts no work")
+        return trace_plain(grid, lookup_fn, rays, refs_per_iter, any_hit,
+                           round_iters, min_batch, steps=steps)
+    mode, args, outs, stats, _keep = march_args(
+        grid, lookup_fn, rays, refs_per_iter, refill=REFILL[bool(coherent)],
+        steps=steps, work=work)
+    if args.n:
+        launch_march(mode, args, any_hit,
+                     torch.cuda.current_stream(dev).cuda_stream)
+        launches["wavefront_march"] += 1
+        truncated, step_total, hard_cap = stats[1:].tolist()
+    else:
+        truncated = step_total = hard_cap = 0
+    _record(args.n, truncated, 1, step_total, hard_cap)
+    return Hits(tri_id=outs["id"], t=outs["t"], u=outs["u"], v=outs["v"])

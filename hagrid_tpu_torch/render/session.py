@@ -9,11 +9,13 @@ Structures:
   per wave shape off the timed path (one host read per probe);
   calibrated frames read nothing back, and overflow stays a device flag
   that `poll_overflow` reads at frame boundaries.
-- "irregular": the two-level irregular grid and the compacted wavefront
-  tracer on its packed tables.
+- "irregular": the two-level irregular grid and the wavefront tracer on
+  its packed tables.
 - "uniform": the single-level grid and the same wavefront.
-The wavefront structures read the device once per round of the trace and
-a few times per build; they have no budgets to calibrate.
+The wavefront structures read the device once per trace on the card (one
+march kernel launch; on the CPU once per round of the plain version's
+compacted rounds) and a few times per build; they have no budgets to
+calibrate.
 """
 
 from __future__ import annotations
@@ -118,15 +120,18 @@ class RenderSession:
     def trace(self, rays: Rays, any_hit: bool = False,
               coherent: bool = False, cal_key=None) -> Hits:
         """Trace a wave; coherent=True for camera-ordered waves, which
-        skip the binning. cal_key distinguishes wave kinds of one shape
-        that need separate budgets (AO samples share one, path bounces
-        another). The wavefront structures ignore both."""
+        skip the binning (the wavefront structures' march kernel takes it
+        to pick its refill threshold). cal_key distinguishes wave kinds of
+        one shape that need separate budgets (AO samples share one, path
+        bounces another); the wavefront structures ignore it."""
         if self.structure == "uniform":
             return uniform.trace_uniform_fast(self.grid, rays,
-                                              any_hit=any_hit)
+                                              any_hit=any_hit,
+                                              coherent=coherent)
         if self.structure == "irregular":
             return irregular.trace_irregular_fast(self.grid, rays,
-                                                  any_hit=any_hit)
+                                                  any_hit=any_hit,
+                                                  coherent=coherent)
         key = (any_hit, coherent, rays.count, cal_key)
         cal = self._bmax_cal.get(key)
         if cal is None:

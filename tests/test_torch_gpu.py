@@ -2,8 +2,7 @@
 hit) and the sweep-cost micro-kernels against their plain versions,
 traced waves (static and deformed scenes) against the oracle, the
 irregular and uniform builds and the wavefront against the CPU's, and the
-wavefront segment kernel against its plain version, all on an NVIDIA
-GPU.
+wavefront march kernel against its plain version, all on an NVIDIA GPU.
 
 These tests skip without a GPU (the CUDA kernel has no CPU mode). The
 module imports no JAX, so it also runs on a machine without it; there,
@@ -18,7 +17,7 @@ import torch
 
 from hagrid_tpu_torch import oracle, scenes
 from hagrid_tpu_torch.core.camera import primary_rays
-from hagrid_tpu_torch.core.types import Triangles
+from hagrid_tpu_torch.core.types import Hits, Triangles
 from hagrid_tpu_torch.exp import kernel_mt20, mxu_micro
 from hagrid_tpu_torch.grid import irregular, uniform
 from hagrid_tpu_torch.grid.packet import build_packet, rays_to_x
@@ -744,8 +743,8 @@ def test_shard_trace_on_card(cuda):
     assert distributed.global_mesh()[0].type == "cuda"
 
 
-def _segment_case(kind, scene, device):
-    """(grid, lookup, rays) on `device` for the segment kernel's lookups:
+def _march_case(kind, scene, device):
+    """(grid, lookup, rays) on `device` for the march kernel's lookups:
     the irregular grid in quad rows or per row (one row more), or the
     uniform grid; Cornell primaries or random rays around a soup, half
     of them with finite tmax."""
@@ -777,93 +776,155 @@ def _segment_case(kind, scene, device):
     return _grid_to(g, device), lk, rays
 
 
-def _assert_states_bit_equal(got, want):
+def _assert_hits_bit_equal(got, want, what=""):
+    assert torch.equal(got.tri_id, want.tri_id), f"{what}: tri_id"
+    for k in ("t", "u", "v"):
+        assert torch.equal(getattr(got, k).view(torch.int32),
+                           getattr(want, k).view(torch.int32)), f"{what}: {k}"
+
+
+def _plain_on_card(g, lk, rays, any_hit, rpi=2):
+    """trace_plain on the card: (hits, steps, last_trace_stats)."""
     from hagrid_tpu_torch.ops import wavefront
-    for k in wavefront._MARCH_KEYS:
-        a, b = got[k], want[k]
-        if a.dtype == torch.float32:
-            a, b = a.view(torch.int32), b.view(torch.int32)
-        assert torch.equal(a, b), k
+    steps = torch.empty(rays.count, dtype=torch.int32, device=rays.org.device)
+    hits = wavefront.trace_plain(g, lk, rays, rpi, any_hit, steps=steps)
+    return hits, steps, dict(wavefront.last_trace_stats)
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("cap", [1, 7, 16])
 @pytest.mark.parametrize("any_hit", [False, True], ids=["closest", "any"])
 @pytest.mark.parametrize("kind", ["quad", "rows", "uniform"])
 @pytest.mark.parametrize("scene", ["cornell", "soup150"])
-def test_segment_kernel_matches_plain_on_card(cuda, scene, kind, any_hit,
-                                              cap):
-    """The segment kernel against segment_plain on the card, segment by
-    segment from the same start state until every ray is dead: every
-    field bit-equal, the live count equal, one launch per segment."""
+def test_march_kernel_matches_plain_on_card(cuda, scene, kind, any_hit):
+    """wavefront.trace on the card (one launch of the march kernel)
+    against trace_plain on the card: tri ids, the bits of t/u/v and every
+    ray's steps equal, no ray truncated, the same mean steps; the kernel's
+    hard cap is max_march_iters'. Each refill threshold gives the same
+    hits and steps, and the work counters add up: SIMD efficiency (alive
+    lane iterations over 32 x warp iterations) is at most 1."""
     from hagrid_tpu_torch.ops import wavefront
-    g, lk, rays = _segment_case(kind, scene, cuda)
+    g, lk, rays = _march_case(kind, scene, cuda)
     assert wavefront.kernel_mode(g, lk) == {"quad": 0, "rows": 1,
                                             "uniform": 2}[kind]
-    st = wavefront._init_state(g, lk, rays)
-    st["steps"] = torch.zeros_like(st["cursor"])
-    ref = st
-    for _ in range(2000):
-        before = wavefront.launches["wavefront_segment"]
-        st, live = wavefront.segment(g, lk, st, 2, any_hit, cap)
-        assert wavefront.launches["wavefront_segment"] == before + 1
-        ref, ref_live = wavefront.segment_plain(g, lk, ref, 2, any_hit, cap)
+    want, want_steps, want_stats = _plain_on_card(g, lk, rays, any_hit)
+    steps = torch.empty_like(want_steps)
+    before = wavefront.launches["wavefront_march"]
+    got = wavefront.trace(g, lk, rays, any_hit=any_hit, steps=steps)
+    assert wavefront.launches["wavefront_march"] == before + 1
+    stats = dict(wavefront.last_trace_stats)
+    _assert_hits_bit_equal(got, want, "trace")
+    assert torch.equal(steps, want_steps)
+    assert stats["truncated_rays"] == want_stats["truncated_rays"] == 0
+    assert stats["rounds"] == 1
+    assert stats["mean_steps"] == want_stats["mean_steps"]
+    starts = g.cell_starts.cpu()
+    cap = wavefront.max_march_iters(g.fine_dims,
+                                    int((starts[1:] - starts[:-1]).max()), 2)
+    for refill in (1, 8, 32):
+        work = torch.zeros(5, dtype=torch.int64, device=cuda)
+        mode, a, outs, st, keep = wavefront.march_args(
+            g, lk, rays, 2, refill=refill, work=work)
+        wavefront.launch_march(mode, a, any_hit)
         torch.cuda.synchronize()
-        _assert_states_bit_equal(st, ref)
-        assert int(live) == int(ref_live)
-        if int(live) == 0:
-            break
-    assert int(live) == 0
+        tests, rows, exits, loads, warp_iters = work.tolist()
+        assert tests >= rows > 0 and exits >= loads > 0
+        assert 0 < int(want_steps.sum()) <= 32 * warp_iters
+        _assert_hits_bit_equal(Hits(tri_id=outs["id"], t=outs["t"],
+                                    u=outs["u"], v=outs["v"]), want,
+                               f"refill {refill}")
+        assert torch.equal(outs["steps"], want_steps)
+        assert st[1:].tolist() == [0, int(want_steps.sum()), cap]
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("any_hit", [False, True], ids=["closest", "any"])
 @pytest.mark.parametrize("kind", ["quad", "rows", "uniform"])
-def test_segment_trace_matches_plain_on_card(cuda, monkeypatch, kind,
-                                             any_hit):
-    """wavefront.trace with its compaction (small batches: a round per
-    compaction) through the kernel and through segment_plain on the card:
-    hits bit-equal, the same rounds and steps."""
+def test_march_kernel_truncates_at_its_cap_on_card(cuda, kind, any_hit):
+    """With the cap lowered to 3 iterations (cap_base), a ray that
+    trace_plain marches for at most 3 iterations keeps its hit and steps;
+    every longer one stops after 3 and counts as truncated."""
     from hagrid_tpu_torch.ops import wavefront
-    g, lk, rays = _segment_case(kind, "soup150", cuda)
-    got = wavefront.trace(g, lk, rays, any_hit=any_hit, min_batch=256)
-    stats = dict(wavefront.last_trace_stats)
-    monkeypatch.setattr(wavefront, "segment", wavefront.segment_plain)
-    want = wavefront.trace(g, lk, rays, any_hit=any_hit, min_batch=256)
-    assert stats == wavefront.last_trace_stats and stats["rounds"] > 1
-    assert torch.equal(got.tri_id, want.tri_id)
-    for k in ("t", "u", "v"):
-        assert torch.equal(getattr(got, k).view(torch.int32),
-                           getattr(want, k).view(torch.int32)), k
+    g, lk, rays = _march_case(kind, "cornell", cuda)
+    want, want_steps, _ = _plain_on_card(g, lk, rays, any_hit)
+    mode, a, outs, st, keep = wavefront.march_args(g, lk, rays, 2)
+    starts = g.cell_starts.cpu()
+    a.cap_base = 3 - 8 * (int((starts[1:] - starts[:-1]).max()) // 2)
+    wavefront.launch_march(mode, a, any_hit)
+    torch.cuda.synchronize()
+    short = want_steps <= 3
+    assert 0 < int(short.sum()) < rays.count
+    assert torch.equal(outs["id"][short], want.tri_id[short])
+    assert torch.equal(outs["t"][short].view(torch.int32),
+                       want.t[short].view(torch.int32))
+    assert torch.equal(outs["steps"], want_steps.clamp(max=3))
+    _, truncated, total, cap = st.tolist()
+    assert cap == 3 and truncated == int((~short).sum())
+    assert total == int(want_steps.clamp(max=3).sum())
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("structure", ["irregular", "uniform"])
-def test_session_trace_launches_the_segment_kernel(cuda, monkeypatch,
-                                                   structure):
-    """RenderSession.trace on the card marches through the kernel and never
-    through segment_plain; a lookup the kernel does not know raises on
-    CUDA tensors, before any launch."""
+def test_session_trace_launches_the_march_kernel(cuda, monkeypatch,
+                                                 structure):
+    """RenderSession.trace on the card marches through one launch of the
+    kernel a trace and never through segment_plain or trace_plain; a
+    lookup the kernel does not know raises on CUDA tensors, before any
+    launch."""
     from hagrid_tpu_torch.ops import wavefront
 
     def refuse(*a, **k):
-        raise AssertionError("segment_plain ran on the card")
+        raise AssertionError("the plain version ran on the card")
 
     monkeypatch.setattr(wavefront, "segment_plain", refuse)
+    monkeypatch.setattr(wavefront, "trace_plain", refuse)
     v, f = scenes.cornell_box()
     s = RenderSession.create(Triangles.from_mesh(v, f, device=cuda),
                              structure=structure, verts=v)
     rays = primary_rays(scenes.cornell_camera(), 64, 64, order="block",
                         device=cuda)
-    before = wavefront.launches["wavefront_segment"]
+    before = wavefront.launches["wavefront_march"]
     hits = s.trace(rays)
-    assert wavefront.launches["wavefront_segment"] > before
+    assert wavefront.launches["wavefront_march"] == before + 1
     assert float((hits.tri_id >= 0).float().mean()) > 0.9
-    g, lk, r = _segment_case("uniform", "cornell", cuda)
-    st = wavefront._init_state(g, lk, r)
-    st["steps"] = torch.zeros_like(st["cursor"])
-    before = wavefront.launches["wavefront_segment"]
+    g, lk, r = _march_case("uniform", "cornell", cuda)
+    before = wavefront.launches["wavefront_march"]
     with pytest.raises(ValueError, match="no lookup"):
-        wavefront.segment(g, lambda grid, vox: lk(grid, vox), st, 2, False,
-                          4)
-    assert wavefront.launches["wavefront_segment"] == before
+        wavefront.trace(g, lambda grid, vox: lk(grid, vox), r)
+    assert wavefront.launches["wavefront_march"] == before
+
+
+class _Reads:
+    """Records each device-to-host read of a tensor (tolist, item, bool,
+    int, float, cpu, numpy) with the march launches made by then."""
+
+    def __init__(self, monkeypatch):
+        from hagrid_tpu_torch.ops import wavefront
+        self.at = []
+        for name in ("tolist", "item", "__bool__", "__int__", "__float__",
+                     "cpu", "numpy"):
+            orig = getattr(torch.Tensor, name)
+            monkeypatch.setattr(torch.Tensor, name,
+                                self._wrap(orig, wavefront.launches))
+
+    def _wrap(self, orig, launches):
+        def f(t, *a, **kw):
+            if t.device.type == "cuda":
+                self.at.append(launches["wavefront_march"])
+            return orig(t, *a, **kw)
+        return f
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("any_hit", [False, True], ids=["closest", "any"])
+@pytest.mark.parametrize("kind", ["quad", "uniform"])
+def test_march_trace_reads_the_device_once(cuda, monkeypatch, kind,
+                                           any_hit):
+    """wavefront.trace on CUDA tensors reads the device exactly once, and
+    only after its launch."""
+    from hagrid_tpu_torch.ops import wavefront
+    g, lk, rays = _march_case(kind, "soup150", cuda)
+    torch.cuda.synchronize()
+    reads = _Reads(monkeypatch)
+    before = wavefront.launches["wavefront_march"]
+    wavefront.trace(g, lk, rays, any_hit=any_hit)
+    assert reads.at == [before + 1]

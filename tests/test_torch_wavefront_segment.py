@@ -1,7 +1,8 @@
-"""PyTorch port, the wavefront segment: `segment_plain` (the plain version
-of csrc/wavefront.cu's kernel) against the JAX package's `_jit_segment`,
-state for state, and the per-ray property the one-thread-per-ray kernel
-rests on.
+"""PyTorch port, the wavefront segment: `segment_plain` (the body of
+`trace_plain`, the plain version of csrc/wavefront.cu's march kernel)
+against the JAX package's `_jit_segment`, state for state, the per-ray
+property the one-thread-per-ray kernel rests on, and the kernel's
+argument block.
 
 Both packages march the same start state: the reference's `_jit_init` on
 its grids (Cornell and random_soup(150, seed=0); the irregular grid in
@@ -207,7 +208,8 @@ def _march(c, any_hit, cap, rpi=2):
     st = wavefront._init_state(c["g"], c["lk"], c["rays"])
     st["steps"] = torch.zeros_like(st["cursor"])
     for _ in range(10000):
-        st, live = wavefront.segment(c["g"], c["lk"], st, rpi, any_hit, cap)
+        st, live = wavefront.segment_plain(c["g"], c["lk"], st, rpi, any_hit,
+                                           cap)
         if int(live) == 0:
             return st
     raise AssertionError("the march did not end")
@@ -246,7 +248,8 @@ def test_one_segment_equals_segments_of_cap(grids, kind, any_hit):
     longest = int(runs[16]["steps"].max())
     st = wavefront._init_state(c["g"], c["lk"], c["rays"])
     st["steps"] = torch.zeros_like(st["cursor"])
-    whole, live = wavefront.segment(c["g"], c["lk"], st, 2, any_hit, longest)
+    whole, live = wavefront.segment_plain(c["g"], c["lk"], st, 2, any_hit,
+                                          longest)
     assert int(live) == 0
     for cap, st in runs.items():
         _assert_state_equal(st, whole, f"cap {cap}")
@@ -268,9 +271,10 @@ def test_wavefront_state_from_numpy_defaults_and_devices(grids):
 
 
 def test_kernel_mode_and_dispatch(grids):
-    """The kernel's lookups: quad rows, per-row and uniform; any other
-    lookup raises (naming it) before a launch; a device that is neither
-    CPU nor CUDA raises; the plain version counts no work."""
+    """The march kernel's lookups: quad rows, per-row and uniform; any
+    other lookup raises (naming it) before a launch; a device that is
+    neither CPU nor CUDA raises before a launch; the plain version counts
+    no work; rays of the wrong type raise."""
     assert wavefront.kernel_mode(grids["cornell", "quad"]["g"], None) == 0
     assert wavefront.kernel_mode(grids["cornell", "rows"]["g"], None) == 1
     c = grids["cornell", "uniform"]
@@ -281,46 +285,54 @@ def test_kernel_mode_and_dispatch(grids):
 
     with pytest.raises(ValueError, match="my_lookup"):
         wavefront.kernel_mode(c["g"], my_lookup)
-    st = wavefront._init_state(c["g"], c["lk"], c["rays"])
-    st["steps"] = torch.zeros_like(st["cursor"])
     with pytest.raises(ValueError, match="my_lookup"):
-        wavefront.kernel_args(c["g"], my_lookup, st, 2, 4)
+        wavefront.march_args(c["g"], my_lookup, c["rays"], 2)
     with pytest.raises(ValueError, match="counts no work"):
-        wavefront.segment(c["g"], c["lk"], st, 2, False, 4,
-                          work=torch.zeros(4, dtype=torch.int64))
-    meta = {k: v.to("meta") for k, v in st.items()}
+        wavefront.trace(c["g"], c["lk"], c["rays"],
+                        work=torch.zeros(5, dtype=torch.int64))
+    r = c["rays"]
+    meta = type(r)(*(getattr(r, k).to("meta")
+                     for k in ("org", "dir", "tmin", "tmax")))
+    before = dict(wavefront.launches)
     with pytest.raises(ValueError, match="CUDA or CPU"):
-        wavefront.segment(c["g"], c["lk"], meta, 2, False, 4)
-    bad = dict(st, cursor=st["cursor"].long())
-    with pytest.raises(ValueError, match="cursor"):
-        wavefront.kernel_args(c["g"], c["lk"], bad, 2, 4)
+        wavefront.trace(c["g"], c["lk"], meta)
+    assert wavefront.launches == before
+    bad = type(r)(r.org.double(), r.dir, r.tmin, r.tmax)
+    with pytest.raises(ValueError, match="rays.org"):
+        wavefront.march_args(c["g"], c["lk"], bad, 2)
 
 
 @pytest.mark.parametrize("kind", KINDS)
 def test_kernel_args_point_into_the_state(grids, kind):
-    """The kernel's argument block on CPU tensors: sizes, geometry and
-    every pointer as the kernel reads them (the launch itself needs the
-    card)."""
+    """The march kernel's argument block on CPU tensors: sizes, the cap's
+    base, the refill threshold and every pointer as the kernel reads them:
+    the rays, the outputs, the stats, the bbox and the tables (the launch
+    itself needs the card)."""
     c = grids["cornell", kind]
-    g = c["g"]
-    st = wavefront._init_state(g, c["lk"], c["rays"])
-    st["steps"] = torch.zeros_like(st["cursor"])
-    mode, a, outs, live, keep = wavefront.kernel_args(g, c["lk"], st, 3, 9)
-    assert (a.n, a.cap, a.refs_per_iter, a.no_tris) == (
-        c["rays"].count, 9, 3, 0)
+    g, rays = c["g"], c["rays"]
+    mode, a, outs, stats, keep = wavefront.march_args(g, c["lk"], rays, 3,
+                                                      refill=9)
+    assert (a.n, a.refs_per_iter, a.no_tris, a.refill) == (
+        rays.count, 3, 0, 9)
     assert list(a.dims) == list(g.fine_dims)
-    geom = keep[0]
-    _, cs = wavefront._geometry(g)
-    assert torch.equal(geom, torch.cat([g.bbox_lo, cs, 1.0 / cs]))
-    assert a.geom == geom.data_ptr() and a.live == live.data_ptr()
-    assert a.work is None
-    for k in wavefront._MARCH_KEYS:
-        assert getattr(a, k + "_o") == outs[k].data_ptr()
-        assert outs[k].shape == st[k].shape and outs[k].dtype == st[k].dtype
-    assert a.org == st["org"].data_ptr() and a.steps == st["steps"].data_ptr()
+    assert a.cap_base == 8 * sum(g.fine_dims) + 256
+    assert a.bbox_lo == g.bbox_lo.data_ptr()
+    assert a.bbox_hi == g.bbox_hi.data_ptr()
+    assert a.stats == stats.data_ptr() and a.work is None
+    assert stats.dtype == torch.int64 and stats.tolist() == [0, 0, 0, 0]
+    for k in ("org", "dir", "tmin", "tmax"):
+        assert getattr(a, k) == getattr(rays, k).data_ptr()
+    for k, dt in (("t", torch.float32), ("id", torch.int32),
+                  ("u", torch.float32), ("v", torch.float32),
+                  ("steps", torch.int32)):
+        assert getattr(a, k) == outs[k].data_ptr()
+        assert outs[k].shape == (rays.count,) and outs[k].dtype == dt
+    assert all(any(x.data_ptr() == p for x in keep)
+               for p in (a.max_cell_refs, a.stats, a.org, a.t))
     if kind == "uniform":
         assert (a.n_starts, a.n_ref_ids, a.n_tris) == (
             g.cell_starts.shape[0], g.ref_ids.shape[0], g.tris.count)
+        assert a.cell_starts == g.cell_starts.data_ptr()
         assert a.top_info is None and a.erec is None
     else:
         assert (a.n_top, a.n_erec, a.n_ref_rows, a.levels) == (
