@@ -110,6 +110,32 @@ Phases, one line each (any failure exits non-zero before the result):
    --iters 3` for each structure at 256x256, nine processes at once
    (exit codes, the PNG, bench's JSON keys). One JSON line
    {"options": ...} carries the numbers.
+14. the reference's options at full size through the user's entry points,
+   every count from zero and no plain version allowed to run (the
+   phase's main path fails if sweep_blocks_plain, trace_wavefront,
+   trace_plain or segment_plain is called): the 1024x1024 primaries
+   through trace_sweep(coherent=True, compact=True) and AO wave 0 through
+   trace_sweep(any_hit=True, coherent=False, compact=False), each on
+   budgets calibrated with return_demand, without overflow (peak round
+   demand of both planners on both waves; the dense budget's reckoned
+   bytes and the measured device memory peak); the AO wave through
+   trace_sorted with sort="origin", "octant" and False, each under its
+   own calibration key (host wall, peak demand, hit/miss against the
+   origin sort); ambient_occlusion with max_dist = default_ao_distance
+   (bit-equal to the default call, and the distance equal to the device
+   read it replaces) and with half of it (no pixel darker); path_trace
+   (sky=2.0) on the Cornell box at 512x512 (exactly twice the default
+   image); trace_irregular and trace_uniform on the primaries and the
+   irregular AO wave (one march launch a call, no ray truncated, host
+   wall and CUDA-event times, the kernel alone and its bound). Then,
+   outside the main path: the compact primaries against the default
+   coherent call (rays that differ) and the oracle; each new round-0
+   stream through the kernel against its plain version, bit for bit on
+   every ray of a swept tile (K2: ids and t/u/v; K3: hit/miss), with
+   both times and the bound; each lockstep entry point against
+   trace_wavefront on the card on a 65,536-ray subset (tri ids and the
+   bits of t/u/v, the plain version's time and truncated rays). One
+   JSON line {"reference_options": ...} carries the numbers.
 The last two lines are the kernels' JSON record and
 {"ok": true, "device": {...}}. Needs a CUDA device; imports no JAX.
 """
@@ -130,7 +156,7 @@ import torch
 
 from hagrid_tpu_torch import oracle, scenes
 from hagrid_tpu_torch.core.camera import block_index, primary_rays
-from hagrid_tpu_torch.core.types import Triangles
+from hagrid_tpu_torch.core.types import Hits, Triangles
 from hagrid_tpu_torch.exp import kernel_mt20, mxu_micro, sass
 from hagrid_tpu_torch.grid import invariants, irregular, uniform
 from hagrid_tpu_torch.grid.packet import build_packet, rays_to_x
@@ -255,6 +281,15 @@ OPT_PROBE_BMAX = {True: 1 << 15, False: 1 << 19}
 OPT_PROBE_ROWMAX = 1 << 22
 OPT_CLI_SIZE = "256x256"
 OPT_CLI_TIMEOUT = 400
+# Phase 14: the bytes a block of the dense planner's budget holds in its
+# items stage (ops/sweep_trace.py::_pack_units, counted: per gather unit,
+# 32 a block, 8 for the start offsets and their prefix sum, 20 for the
+# thresholds' i64 deltas, their prefix sum and its i32 cast, 4 the slots,
+# 1 their mask, 8 the gather indices; per block 32 for its tile, marks,
+# threshold and end), and the rays of a wave that trace_wavefront also
+# marches on the card.
+DENSE_ITEMS_BYTES_PER_BLOCK = 32 * (8 + 20 + 4 + 1 + 8) + 32
+LOCKSTEP_SUBSET = 1 << 16
 DEV = "cuda"
 
 
@@ -1097,6 +1132,25 @@ def march_against_plain(name, call):
     return stats, steps, [int(x) for x in work.tolist()], plain_stats, dt
 
 
+def march_bound(n, work, started):
+    """The march's bound for n rays from the work the trace's data needs
+    (the kernel's counters: refs tested, rows, cell exits, cell fetches,
+    warp iterations) and the rays that started alive: the larger of its
+    operations at the FP32 peak and the bytes a trace provably moves, its
+    rays in and its hits and steps out, at the HBM rate. The rows of the
+    tables that its rays visit are not counted (which rows they are is not
+    measured); the whole tables stand beside the bound as a ceiling on
+    them, outside it."""
+    tests, _, exits, _, _ = work
+    ops = (tests * MARCH_OPS_PER_TEST + exits * MARCH_OPS_PER_EXIT
+           + n * MARCH_OPS_PER_RAY + started * MARCH_OPS_PER_START)
+    ops_ms = ops / FP32_PEAK * 1e3
+    bytes_ms = n * MARCH_RAY_BYTES / HBM_RATE * 1e3
+    return dict(bound_ms=max(ops_ms, bytes_ms),
+                bound_by="operations" if ops_ms >= bytes_ms else "bytes",
+                bound_ops_ms=ops_ms, bound_bytes_ms=bytes_ms)
+
+
 def march_record(name, call, card):
     """The kernel against trace_plain on one recorded trace of a wave; its
     time alone (back-to-back launches) at the trace's refill threshold
@@ -1115,24 +1169,14 @@ def march_record(name, call, card):
     plain_ms = cuda_ms(lambda: wavefront.trace_plain(grid, lk, rays, rpi,
                                                      any_hit),
                        iters=1, warmup=0)
-    ops = (tests * MARCH_OPS_PER_TEST + exits * MARCH_OPS_PER_EXIT
-           + n * MARCH_OPS_PER_RAY + started * MARCH_OPS_PER_START)
-    ray_bytes = n * MARCH_RAY_BYTES
+    b = march_bound(n, work, started)
+    ops_ms, bytes_ms = b["bound_ops_ms"], b["bound_bytes_ms"]
     tbytes = table_bytes(grid, mode)
-    ops_ms = ops / FP32_PEAK * 1e3
-    # The bytes a trace provably moves: its rays in and its hits and steps
-    # out. The rows of the tables that its rays visit are not counted
-    # (which rows they are is not measured); the whole tables stand
-    # beside the bound as a ceiling on them, outside it.
-    bytes_ms = ray_bytes / HBM_RATE * 1e3
     gathered = (rows * MARCH_ROW_BYTES[mode]
                 + (loads + started) * MARCH_CELL_BYTES[mode])
     rec = dict(mode=MARCH_MODE_NAMES[mode], rays=n, ms=ms, plain_ms=plain_ms,
                ms_by_refill=by_refill, refill=refill, coherent=coherent,
-               blocks_per_sm=per_sm, blocks=blocks,
-               bound_ms=max(ops_ms, bytes_ms),
-               bound_by="operations" if ops_ms >= bytes_ms else "bytes",
-               bound_ops_ms=ops_ms, bound_bytes_ms=bytes_ms,
+               blocks_per_sm=per_sm, blocks=blocks, **b,
                table_bytes_ms=tbytes / HBM_RATE * 1e3,
                tests=tests, rows=rows, exits=exits, loads=loads,
                started=started, alive_iters=step_total,
@@ -1369,30 +1413,39 @@ def structures_phase(v, tris, rays, card):
     return s_irr, wave, s_uni, march_rec
 
 
-def hits_against(name, hits, ref):
-    """Every ray of a wave against another grid's hits of the same rays,
-    with tests/test_sweep_trace.py::_check's thresholds."""
+def hits_against(name, hits, ref, tag="options"):
+    """Every ray of a wave against other hits of the same rays, with
+    tests/test_sweep_trace.py::_check's thresholds; the counts of rays
+    whose hit/miss, id or t bits differ are printed and returned."""
     got_hit, ref_hit = hits.tri_id >= 0, ref.tri_id >= 0
     t_ok = torch.isclose(hits.t, ref.t, rtol=1e-3, atol=1e-5)
     agree = float(((got_hit == ref_hit) & (~ref_hit | t_ok)).float().mean())
     both = got_hit & ref_hit
     id_rate = float((hits.tri_id[both] == ref.tri_id[both]).float().mean())
-    print(f"[options] {name}: {hits.tri_id.numel()} rays, hit/miss+t "
-          f"agreement {agree:.6f}, id agreement {id_rate:.6f}", flush=True)
+    n_hit = int((got_hit != ref_hit).sum())
+    n_id = int((hits.tri_id != ref.tri_id).sum())
+    n_t = int((hits.t.view(torch.int32) != ref.t.view(torch.int32)).sum())
+    print(f"[{tag}] {name}: {hits.tri_id.numel()} rays, hit/miss+t "
+          f"agreement {agree:.6f}, id agreement {id_rate:.6f}; rays that "
+          f"differ: hit/miss {n_hit}, tri id {n_id}, t bits {n_t}",
+          flush=True)
     check(agree > 0.999, f"{name}: hits disagree")
     check(id_rate > 0.995, f"{name}: tri ids disagree")
-    return dict(agree=agree, id_rate=id_rate)
+    return dict(agree=agree, id_rate=id_rate, differ_hit=n_hit,
+                differ_id=n_id, differ_t=n_t)
 
 
-def calibrate(grid, rays, any_hit, coherent, fine_bins=False):
+def calibrate(grid, rays, any_hit, coherent, fine_bins=False, compact=None):
     """(bmax, rowmax, peak round block demand, peak live rows) of a wave:
     one probe at a generous budget (doubled until it completes), then the
     budgets RenderSession._calibrate would set (demand x margin on the
-    rung ladders), kept only if the wave completes under them."""
+    rung ladders), kept only if the wave completes under them. compact:
+    trace_sweep's planner (None: the compact one for incoherent waves)."""
     bmax = OPT_PROBE_BMAX[coherent]
-    rowmax = None if coherent else OPT_PROBE_ROWMAX
+    rows_budget = (not coherent) if compact is None else compact
+    rowmax = OPT_PROBE_ROWMAX if rows_budget else None
     kw = dict(any_hit=any_hit, coherent=coherent, fine_bins=fine_bins,
-              return_overflow=True)
+              compact=compact, return_overflow=True)
     for _ in range(4):
         _, ovf, dem = trace_sweep(grid, rays, bmax=bmax, rowmax=rowmax,
                                   return_demand=True, **kw)
@@ -1409,11 +1462,13 @@ def calibrate(grid, rays, any_hit, coherent, fine_bins=False):
     return b, r, d, rows
 
 
-def kernel_vs_plain(name, cols, stream, any_hit, rows=None):
+def kernel_vs_plain(name, cols, stream, any_hit, rows=None, tag="options",
+                    bit_equal=False):
     """The sweep kernel against its plain version on one round-0 stream
     (not counted as a main-path launch): ids, t or any-hit genuineness,
     the kernel's ms over 10 calls, the plain version's over one, and the
-    stream's bound."""
+    stream's bound. bit_equal: also every ray of a swept tile equal bit
+    for bit (closest hit: ids and t/u/v; any hit: hit/miss)."""
     xt, gidx, tile_of, tminb, tile = stream
     args = (xt, cols, gidx, tile_of, tminb, tile)
     start = torch.cuda.Event(enable_timing=True)
@@ -1428,14 +1483,31 @@ def kernel_vs_plain(name, cols, stream, any_hit, rows=None):
         err = compare_anyhit(name, got, ref, args, rows)
     else:
         err = compare_sweeps(name, got, ref, tile_of, tile)
+    differ = None
+    if bit_equal:
+        swept = swept_rays(tile_of, xt.shape[1], tile)
+        n = swept.numel()
+        if any_hit:
+            fields = [(got[1][:n] >= 0, ref[1][:n] >= 0)]
+        else:
+            fields = [(got[1][:n], ref[1][:n])] + [
+                (got[k][:n].view(torch.int32), ref[k][:n].view(torch.int32))
+                for k in (0, 2, 3)]
+        differ = int((torch.stack([a != b for a, b in fields]).any(0)
+                      & swept).sum())
+        print(f"[{tag}] {name}: rays of swept tiles that differ from the "
+              f"plain version ({'hit/miss' if any_hit else 'id, t, u, v bits'}"
+              f"): {differ} of {int(swept.sum())}", flush=True)
+        check(differ == 0, f"{name}: the kernel is not bit-equal to its "
+              f"plain version on {differ} rays")
     ms = cuda_ms(lambda: sweep_blocks(*args, any_hit=any_hit), iters=10)
     b = bound(args, any_hit, name)
-    print(f"[options] {name}: {b['live_blocks']} blocks, kernel {ms:.3f} "
+    print(f"[{tag}] {name}: {b['live_blocks']} blocks, kernel {ms:.3f} "
           f"ms, plain {plain_ms:.3f} ms, bound {b['bound_ms']:.3f} ms",
           flush=True)
     return dict(blocks=b["live_blocks"], ms=ms, plain_ms=plain_ms,
                 bound_ms=b["bound_ms"], bound_by=b["bound_by"],
-                max_abs_err=err)
+                max_abs_err=err, differ=differ)
 
 
 def option_grid(name, tris, bbox, kw, base, card):
@@ -1719,6 +1791,292 @@ def options_phase(v, f, tris, rays, hits, grid, session, wave, b1, card):
     return rec, launches
 
 
+@contextlib.contextmanager
+def refusing(module, *names):
+    """Within the block, calling module.<name> raises: a main path that
+    falls back to a plain version fails the run."""
+    saved = {n: getattr(module, n) for n in names}
+
+    def refuse(name):
+        def f(*a, **k):
+            raise SmokeFailure(f"{module.__name__}.{name} ran on the card "
+                               f"inside a main path")
+        return f
+
+    for n in names:
+        setattr(module, n, refuse(n))
+    try:
+        yield
+    finally:
+        for n, fn in saved.items():
+            setattr(module, n, fn)
+
+
+def hits_subset(hits, idx):
+    return Hits(*(getattr(hits, k)[idx] for k in ("tri_id", "t", "u", "v")))
+
+
+def reference_options_phase(session, rays, hits, tris, ao_wave, s_irr,
+                            irr_wave, s_uni, cam, card):
+    """Phase 14: the reference's options through the user's entry points
+    at full size. Returns (record, launches of the phase's main path by
+    kernel, the K2/K3 streams' records, the K8 entry points' records)."""
+    rec = {"card": card}
+    t_phase = time.perf_counter()
+    grid = session.grid
+    srt, _ = sortrays.sort_rays(ao_wave, grid.bbox_lo, grid.bbox_hi,
+                                bits=10, origin_major=True)
+    # Budgets, off the main path: each planner on each wave.
+    b_cc, r_cc, d_cc, rows_cc = calibrate(grid, rays, False, True,
+                                          compact=True)
+    _, _, d_cd, _ = calibrate(grid, rays, False, True)
+    b_ad, _, d_ad, _ = calibrate(grid, srt, True, False, compact=False)
+    b_ac, r_ac, d_ac, rows_ac = calibrate(grid, srt, True, False)
+    rec["demand"] = dict(primary_compact=(d_cc, rows_cc),
+                         primary_dense=d_cd, ao_dense=d_ad,
+                         ao_compact=(d_ac, rows_ac))
+    print(f"[refopts] peak round demand (blocks, live rows): primaries "
+          f"compact ({d_cc}, {rows_cc}), dense {d_cd}; AO wave 0 dense "
+          f"{d_ad}, compact ({d_ac}, {rows_ac}); budgets: primaries "
+          f"compact ({b_cc}, {r_cc}), AO dense {b_ad}, AO compact ({b_ac}, "
+          f"{r_ac})", flush=True)
+    reckoned = b_ad * DENSE_ITEMS_BYTES_PER_BLOCK
+    print(f"[refopts] AO wave 0, dense planner: budget {b_ad} blocks, "
+          f"reckoned {reckoned} bytes ({reckoned / 2**20:.1f} MiB) of the "
+          f"items stage's arrays at {DENSE_ITEMS_BYTES_PER_BLOCK} bytes a "
+          f"block", flush=True)
+
+    # The main path: every count from zero; no plain version may run.
+    reset_launches()
+    with refusing(sk, "sweep_blocks_plain"), refusing(
+            wavefront, "trace_wavefront", "trace_plain", "segment_plain"):
+        # 1. Primaries through the compact planner.
+        walls, devs, (h_cc, ovf) = wall_and_device_ms(
+            lambda: trace_sweep(grid, rays, coherent=True, compact=True,
+                                bmax=b_cc, rowmax=r_cc,
+                                return_overflow=True), 3)
+        check(not bool(ovf), "primaries, compact planner: overflow")
+        rec["primary_compact"] = dict(wall_ms=walls, ms=devs)
+        print(f"[refopts] primaries ({rays.count} rays), trace_sweep("
+              f"coherent=True, "
+              f"compact=True): host wall {span(walls)} ms, {span(devs)} ms "
+              f"between CUDA events ({card}); K2 launches "
+              f"{sk.launches['sweep_blocks']}; overflow False", flush=True)
+        # 2. AO wave 0 through the dense planner, and the compact call.
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        walls, devs, (h_ad, ovf) = wall_and_device_ms(
+            lambda: trace_sweep(grid, srt, any_hit=True, coherent=False,
+                                compact=False, bmax=b_ad,
+                                return_overflow=True), 2)
+        peak = torch.cuda.max_memory_allocated() - base
+        check(not bool(ovf), "AO wave 0, dense planner: overflow")
+        walls_c, devs_c, (h_ac, ovf) = wall_and_device_ms(
+            lambda: trace_sweep(grid, srt, any_hit=True, bmax=b_ac,
+                                rowmax=r_ac, return_overflow=True), 2)
+        check(not bool(ovf), "AO wave 0, compact planner: overflow")
+        n_diff = int(((h_ad.tri_id >= 0) != (h_ac.tri_id >= 0)).sum())
+        rec["ao_dense"] = dict(wall_ms=walls, ms=devs, peak_bytes=peak,
+                               reckoned_bytes=reckoned,
+                               compact_wall_ms=walls_c, compact_ms=devs_c,
+                               differ_hit=n_diff)
+        print(f"[refopts] AO wave 0 ({srt.count} rays, origin-sorted), "
+              f"trace_sweep(any_hit=True, coherent=False, compact=False): "
+              f"host wall {span(walls)} ms, {span(devs)} ms between CUDA "
+              f"events, device memory peak {peak} bytes above the frame's "
+              f"inputs (reckoned {reckoned}); compact planner {span(walls_c)}"
+              f" ms, {span(devs_c)} ms ({card}); hit/miss differs from the "
+              f"compact call on {n_diff} rays; overflow False", flush=True)
+        check(n_diff == 0, f"dense and compact AO waves differ on {n_diff} "
+              f"rays")
+        # 3. The sort options on the packet session, each its own budgets.
+        keys = {"origin": "ao", "octant": "ao_octant", False: "ao_caller"}
+        sorts = {}
+        for sort, key in keys.items():
+            def run(sort=sort, key=key):
+                return integrators.trace_sorted(session, ao_wave,
+                                                any_hit=True, sort=sort,
+                                                cal_key=key)
+            run()                               # calibrates a new key
+            walls, devs, h = wall_and_device_ms(run, 3)
+            sorts[sort] = dict(h=h, wall_ms=walls, ms=devs,
+                               budgets=session._bmax_cal[
+                                   (True, False, ao_wave.count, key)])
+        check(not session.poll_overflow(recalibrate=False),
+              "a sort option's wave overflowed its budgets")
+        # 4. ambient_occlusion(max_dist=...), one generator seed.
+        dist = integrators.default_ao_distance(session)
+
+        def ao(max_dist=None):
+            gen = torch.Generator(device=DEV).manual_seed(11)
+            return integrators.ambient_occlusion(session, rays, hits, gen,
+                                                 max_dist=max_dist)
+
+        ao_def, ao_given, ao_half = ao(), ao(dist), ao(0.5 * dist)
+        check(not session.poll_overflow(recalibrate=False),
+              "ambient_occlusion overflowed")
+        # 5. path_trace(sky=2.0): the same seed, exactly twice the image,
+        # on the Cornell box (open at the front: the Sponza-like hall is
+        # closed, and no path of it reaches the sky).
+        cv, cf = scenes.cornell_box()
+        s_box = RenderSession.create(Triangles.from_mesh(cv, cf, device=DEV),
+                                     verts=cv)
+        p1 = integrators.path_trace(s_box, scenes.cornell_camera(),
+                                    PATH_SIZE, PATH_SIZE,
+                                    max_bounces=PATH_BOUNCES)
+        p2 = integrators.path_trace(s_box, scenes.cornell_camera(),
+                                    PATH_SIZE, PATH_SIZE,
+                                    max_bounces=PATH_BOUNCES, sky=2.0)
+        check(not s_box.poll_overflow(recalibrate=False),
+              "path_trace overflowed")
+        # 6. trace_irregular and trace_uniform through K8.
+        lockstep = {}
+        for sname, s_, entry, lk in (
+                ("irregular", s_irr, irregular.trace_irregular,
+                 irregular.irregular_lookup),
+                ("uniform", s_uni, uniform.trace_uniform,
+                 uniform.uniform_lookup)):
+            for wname, w, any_hit in (("primaries", rays, False),
+                                      ("AO wave", irr_wave, True)):
+                def run(g=s_.grid, w=w, any_hit=any_hit, entry=entry):
+                    return entry(g, w, any_hit=any_hit)
+                before = wavefront.launches["wavefront_march"]
+                h = run()
+                one = wavefront.launches["wavefront_march"] - before
+                stats = dict(wavefront.last_trace_stats)
+                walls, devs, _ = wall_and_device_ms(run, 3)
+                lockstep[f"{sname} {wname}"] = dict(
+                    h=h, launches=one, stats=stats, wall_ms=walls, ms=devs,
+                    call=(s_.grid, lk, w, 8, any_hit, False))
+                check(one == 1, f"trace_{sname} on the {wname}: {one} "
+                      f"march launches in one call")
+                check(stats["truncated_rays"] == 0, f"trace_{sname} on the "
+                      f"{wname}: {stats['truncated_rays']} rays truncated")
+        torch.cuda.synchronize()
+    launches = {**sk.launches, **wavefront.launches}
+    rec["launches"] = launches
+    print(f"[refopts] kernel launches of the phase's main path (counts from"
+          f" zero, no plain version called): {launches}", flush=True)
+    check(launches["sweep_blocks"] > 0 and launches["sweep_blocks_anyhit"]
+          > 0 and launches["wavefront_march"] > 0,
+          "phase 14 did not launch K2, K3 and K8")
+
+    # 1 and 2, against the default calls and the plain sweep.
+    rec["primary_compact"].update(hits_against(
+        "primaries, compact planner, against the default coherent call",
+        h_cc, hits, tag="refopts"))
+    check_closest_sample("primaries, compact planner", rays, h_cc, tris)
+    streams = dict(
+        k2_compact_coherent=kernel_vs_plain(
+            "K2, primaries round 0, compact planner", grid.cols,
+            first_round_stream(grid, rays, coherent=True, compact=True,
+                               bmax=b_cc, rowmax=r_cc), False,
+            tag="refopts", bit_equal=True),
+        k3_dense_incoherent=kernel_vs_plain(
+            "K3, AO wave 0 round 0, dense planner", grid.cols,
+            first_round_stream(grid, srt, any_hit=True, coherent=False,
+                               compact=False, bmax=b_ad), True,
+            tri_rows(grid.cols, tris.count), tag="refopts",
+            bit_equal=True))
+    check_anyhit_sample("AO wave 0, dense planner", srt, h_ad, tris)
+    rec["streams"] = streams
+    # 3. The sort options against the origin sort.
+    base_hit = sorts["origin"]["h"].tri_id >= 0
+    for sort, r in sorts.items():
+        w = ao_wave if not sort else sortrays.sort_rays(
+            ao_wave, grid.bbox_lo, grid.bbox_hi,
+            bits=10 if sort == "origin" else 7,
+            origin_major=sort == "origin")[0]
+        bmax, rowmax = r["budgets"]
+        dem = trace_sweep(grid, w, any_hit=True, bmax=bmax, rowmax=rowmax,
+                          return_overflow=True, return_demand=True)[2]
+        agree = float(((r.pop("h").tri_id >= 0) == base_hit).float().mean())
+        r.update(agree=agree, demand=dem.tolist())
+        print(f"[refopts] trace_sorted(AO wave 0, any_hit=True, sort="
+              f"{sort!r}): host wall {span(r['wall_ms'])} ms, "
+              f"{span(r['ms'])} ms between CUDA events ({card}); peak round "
+              f"demand {r['demand']} (blocks, live rows), budgets "
+              f"{r['budgets']}; hit/miss agrees with sort='origin' on "
+              f"{agree:.6f} of rays", flush=True)
+        check(agree > 0.999, f"sort={sort!r}: hit/miss disagrees with the "
+              f"origin sort")
+    rec["sorts"] = {str(k): v for k, v in sorts.items()}
+    # 4. and 5.
+    dev_read = float((grid.bbox_hi - grid.bbox_lo).max()) * 0.1
+    same = torch.equal(ao_def, ao_given)
+    no_darker = bool((ao_half >= ao_def).all())
+    twice = torch.equal(p2, 2.0 * p1) and float(p1.mean()) > 0
+    rec["ambient_occlusion"] = dict(
+        max_dist=dist, device_read=dev_read, given_equal=same,
+        half_no_darker=no_darker, mean=float(ao_def.mean()),
+        mean_half=float(ao_half.mean()))
+    rec["path_sky2_twice"] = twice
+    print(f"[refopts] default_ao_distance {dist!r} from the session's host "
+          f"bounds, the device read {dev_read!r}; ambient_occlusion(max_dist"
+          f"=that) bit-equal to the default call: {same}; max_dist halved: "
+          f"every pixel at least the default's: {no_darker} (means "
+          f"{rec['ambient_occlusion']['mean']:.5f}, "
+          f"{rec['ambient_occlusion']['mean_half']:.5f}); path_trace("
+          f"sky=2.0) on the Cornell box, {PATH_SIZE}x{PATH_SIZE}, 1 spp, "
+          f"{PATH_BOUNCES} bounces, exactly twice the default image: "
+          f"{twice} (mean {float(p1.mean()):.5f})", flush=True)
+    check(dist == dev_read, "the host bounds give another AO distance")
+    check(same, "ambient_occlusion(max_dist=default) differs from default")
+    check(no_darker, "a shorter AO distance darkened a pixel")
+    check(twice, "path_trace(sky=2.0) is not twice the default image")
+    # 6. Each entry point against trace_wavefront on the card, on a
+    # subset; the kernel's time alone and its bound.
+    march = {}
+    for name, r in lockstep.items():
+        g, lk, w, rpi, any_hit, _ = call = r.pop("call")
+        idx = sample(w.count, k=LOCKSTEP_SUBSET, seed=5)
+        sub = w.take(idx)
+        if lk is irregular.irregular_lookup:
+            args = (g.tris, g.lookup, g.cell_starts, g.ref_ids, g.bbox_lo,
+                    g.bbox_hi, g.fine_dims)
+        else:
+            args = (g.tris, lambda vox, g=g: lk(g, vox), g.cell_starts,
+                    g.ref_ids, g.bbox_lo, g.bbox_hi, g.dims)
+        plain_ms, _, want = wall_and_device_ms(
+            lambda: wavefront.trace_wavefront(sub, *args, any_hit=any_hit),
+            1)
+        plain_stats = dict(wavefront.last_trace_stats)
+        bad, dt = hits_bits_diff(hits_subset(r.pop("h"), idx), want)
+        steps = torch.empty(w.count, dtype=torch.int32, device=DEV)
+        work = torch.zeros(5, dtype=torch.int64, device=DEV)
+        wavefront.trace(g, lk, w, rpi, any_hit, steps=steps, work=work)
+        b = march_bound(w.count, [int(x) for x in work.tolist()],
+                        int((steps > 0).sum()))
+        ms, _ = march_ms(call)
+        r.update(kernel_ms=ms, plain_ms=plain_ms[0], subset=idx.numel(),
+                 differ=bad, max_abs_dt=dt,
+                 plain_truncated=plain_stats["truncated_rays"], **b)
+        march[name] = r
+        print(f"[refopts] trace_{name.split()[0]} on the "
+              f"{name.split(' ', 1)[1]} ({w.count} rays, any_hit {any_hit}; "
+              f"the AO wave is the irregular session's, phase 12; "
+              f"{card}): {r['launches']} march launch a call, "
+              f"{r['stats']['mean_steps']:.3f} steps a ray, truncated "
+              f"{r['stats']['truncated_rays']}; host wall "
+              f"{span(r['wall_ms'])} ms, {span(r['ms'])} ms between CUDA "
+              f"events; kernel alone {ms:.4f} ms; bound "
+              f"{b['bound_ms']:.4f} ms by {b['bound_by']}; against "
+              f"trace_wavefront on the card on {idx.numel()} rays "
+              f"({plain_ms[0]:.1f} ms, truncated "
+              f"{plain_stats['truncated_rays']}): "
+              f"{'tri ids and the bits of t/u/v equal' if not bad else f'{bad} DIFFER'}"
+              f"; max |dt| {dt}", flush=True)
+        check(not bad, f"trace_{name}: differs from trace_wavefront ({bad})")
+        check(plain_stats["truncated_rays"] == 0, f"trace_{name}: "
+              f"trace_wavefront truncated rays")
+    rec["lockstep"] = march
+    rec["phase_s"] = time.perf_counter() - t_phase
+    print(f"[refopts] phase 14 took {rec['phase_s']:.1f} s", flush=True)
+    print(json.dumps({"reference_options": rec}), flush=True)
+    return rec, launches, streams, march
+
+
 def max_diff(got, want):
     return max(float((a.float() - b.float()).abs().max())
                for a, b in zip(got, want))
@@ -1948,21 +2306,31 @@ def micro_phase(card, dev):
     return list(entries.values())
 
 
-def march_entry(m):
+def march_entry(m, ref_launches, lockstep):
     """The kernels line's wavefront_march entry: the irregular primary
     frame's trace (the main path's first wave), the AO wave's, the path
-    bounce's and the uniform frame's beside it. Every ray is compared bit for bit, so
-    max_abs_err is the largest |dt| (0 when equal). No single PyTorch
-    call marches a ray: library_ms is null."""
+    bounce's and the uniform frame's beside it, and phase 14's
+    trace_irregular / trace_uniform calls (launches added to phase 12's).
+    Every ray is compared bit for bit, so max_abs_err is the largest |dt|
+    (0 when equal). No single PyTorch call marches a ray: library_ms is
+    null."""
     prim = m["march"]["irregular primary"]
     ao = m["march"]["irregular AO wave"]
     bounce = m["march"]["irregular path bounce"]
     uni = m["march"]["uniform primary"]
-    dt = max([r["max_abs_dt"] for r in m["march"].values()] + [m["row_dt"]])
+    dt = max([r["max_abs_dt"] for r in m["march"].values()] + [m["row_dt"]]
+             + [r["max_abs_dt"] for r in lockstep.values()])
     census = m["census"]
     return dict(
         name="wavefront_march", route="cuda", source=MARCH_SOURCE,
-        replaces=MARCH_REPLACES, launches=m["launches"], max_abs_err=dt,
+        replaces=MARCH_REPLACES, launches=m["launches"] + ref_launches,
+        launches_reference_options=ref_launches,
+        lockstep_entry_points={
+            k: dict(kernel_ms=r["kernel_ms"], plain_ms=r["plain_ms"],
+                    plain_rays=r["subset"], bound_ms=r["bound_ms"],
+                    bound_by=r["bound_by"])
+            for k, r in lockstep.items()},
+        max_abs_err=dt,
         ms=prim["ms"], plain_ms=prim["plain_ms"], bound_ms=prim["bound_ms"],
         bound_by=prim["bound_by"], library_ms=None,
         bound_ops_ms=prim["bound_ops_ms"],
@@ -2156,6 +2524,13 @@ def main(profile_path=False, with_variants=False) -> int:
                                         "path_fine")),
                                 ("k3", ("ao_refine", "ao_fine")))}
 
+    # 14. the reference's options through K2/K3, the session and K8
+    _, ref_launches, ref_streams, ref_march = reference_options_phase(
+        session, rays, hits, tris, ao["wave"], s_irr, irr_wave, s_uni, cam,
+        card)
+    k2_c = ref_streams["k2_compact_coherent"]
+    k3_d = ref_streams["k3_dense_incoherent"]
+
     # 6. optional device-time breakdown, run last
     if profile_path is not False:
         for what, fn in (("frame", lambda: session.trace(rays, coherent=True)),
@@ -2178,14 +2553,18 @@ def main(profile_path=False, with_variants=False) -> int:
     # ms/plain_ms: the gather call (the main path's); *_pregathered: the
     # same kernel called K1's way in phase 3, which the main path never
     # makes. launches: the main path's count (phase 4 for closest hit,
-    # phase 8 for any hit, phase 11's records for K4-K7); the dynamic
-    # frames' sweep launches ride on the closest-hit entry, phase 13's
-    # (option grids, fine bins) on both sweep entries. No single
+    # phase 8 for any hit, phase 11's records for K4-K7, phase 12 for the
+    # march) and phase 14's (launches_reference_options beside it); the
+    # dynamic frames' sweep launches ride on the closest-hit entry, phase
+    # 13's (option grids, fine bins) on both sweep entries. No single
     # PyTorch call computes the sweep: library_ms is null.
     kernels = [
         dict(name="sweep_blocks", route="cuda", source=KERNEL_SOURCE,
-             replaces=REPLACES, launches=launches,
-             max_abs_err=max(err, err1, err_r, path["err"], opt_err["k2"]),
+             replaces=REPLACES,
+             launches=launches + ref_launches["sweep_blocks"],
+             launches_reference_options=ref_launches["sweep_blocks"],
+             max_abs_err=max(err, err1, err_r, path["err"], opt_err["k2"],
+                             k2_c["max_abs_err"]),
              ms=ms,
              plain_ms=plain_ms,
              bound_ms=bound_k12["bound_ms"], bound_by=bound_k12["bound_by"],
@@ -2197,19 +2576,29 @@ def main(profile_path=False, with_variants=False) -> int:
              launches_options=opt_launches["sweep_blocks"],
              ms_incoherent=path["ms"], plain_ms_incoherent=path["plain_ms"],
              bound_ms_incoherent=path["bound"]["bound_ms"],
-             blocks_skipped_incoherent=path["bound"]["blocks_skipped"]),
+             blocks_skipped_incoherent=path["bound"]["blocks_skipped"],
+             ms_compact_coherent=k2_c["ms"],
+             plain_ms_compact_coherent=k2_c["plain_ms"],
+             bound_ms_compact_coherent=k2_c["bound_ms"],
+             blocks_compact_coherent=k2_c["blocks"]),
         dict(name="sweep_blocks_anyhit", route="cuda", source=KERNEL_SOURCE,
              replaces=REPLACES_ANYHIT,
-             launches=slice_launches["sweep_blocks_anyhit"],
+             launches=(slice_launches["sweep_blocks_anyhit"]
+                       + ref_launches["sweep_blocks_anyhit"]),
+             launches_reference_options=ref_launches["sweep_blocks_anyhit"],
              launches_options=opt_launches["sweep_blocks_anyhit"],
-             max_abs_err=max(ao["err"], opt_err["k3"]), ms=ao["ms"],
-             plain_ms=ao["plain_ms"],
+             max_abs_err=max(ao["err"], opt_err["k3"], k3_d["max_abs_err"]),
+             ms=ao["ms"], plain_ms=ao["plain_ms"],
              bound_ms=ao["bound"]["bound_ms"],
              bound_by=ao["bound"]["bound_by"], library_ms=None,
              blocks_skipped=ao["bound"]["blocks_skipped"],
-             bound_ms_no_fma=ao["bound"]["bound_ms_no_fma"]),
+             bound_ms_no_fma=ao["bound"]["bound_ms_no_fma"],
+             ms_dense_incoherent=k3_d["ms"],
+             plain_ms_dense_incoherent=k3_d["plain_ms"],
+             bound_ms_dense_incoherent=k3_d["bound_ms"],
+             blocks_dense_incoherent=k3_d["blocks"]),
         *micro_kernels,
-        march_entry(march)]
+        march_entry(march, ref_launches["wavefront_march"], ref_march)]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

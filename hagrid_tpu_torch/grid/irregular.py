@@ -802,11 +802,18 @@ def trace_irregular_fast(grid: IrregularGrid, rays, any_hit: bool = False,
 
 def trace_irregular(grid: IrregularGrid, rays, refs_per_iter: int = 8,
                     any_hit: bool = False):
-    """Lockstep wavefront traversal to completion through the generic
-    lookup (no packed tables, no compaction)."""
-    from ..ops.wavefront import trace_wavefront
+    """Wavefront traversal to completion. CUDA tensors: one launch of the
+    march kernel on the packed tables (ops/wavefront.trace; its quad rows
+    test 4 refs an iteration whatever refs_per_iter says, which changes
+    the steps and not the hits). CPU tensors: the plain version,
+    trace_wavefront's lockstep march through the generic lookup. Any
+    other device raises."""
+    from ..ops import wavefront
 
-    return trace_wavefront(rays, grid.tris, grid.lookup, grid.cell_starts,
-                           grid.ref_ids, grid.bbox_lo, grid.bbox_hi,
-                           grid.fine_dims, refs_per_iter=refs_per_iter,
-                           any_hit=any_hit)
+    if rays.org.device.type != "cpu":
+        return wavefront.trace(grid, irregular_lookup, rays,
+                               refs_per_iter=refs_per_iter, any_hit=any_hit)
+    return wavefront.trace_wavefront(
+        rays, grid.tris, grid.lookup, grid.cell_starts, grid.ref_ids,
+        grid.bbox_lo, grid.bbox_hi, grid.fine_dims,
+        refs_per_iter=refs_per_iter, any_hit=any_hit)

@@ -372,6 +372,15 @@ def _rs_entries(dims3, refine: bool) -> int:
     return total
 
 
+def padded_bounds(lo, hi):
+    """The grid's bounds from the scene's host bounds, in float32: each
+    side moved out by 1e-4 of the extent plus 1e-4."""
+    lo = np.asarray(lo, np.float32)
+    hi = np.asarray(hi, np.float32)
+    pad = (hi - lo) * np.float32(1e-4) + np.float32(1e-4)
+    return lo - pad, hi + pad
+
+
 def build_packet(tris: Triangles, cross_density: float = 0.4,
                  slice_density: float = 0.02,
                  ref_capacity: int | None = None,
@@ -410,15 +419,12 @@ def build_packet(tris: Triangles, cross_density: float = 0.4,
             tris=tris,
             planes=torch.tensor([[0.0, 1.0]] * 3, **f32))
     if bbox is not None:
-        lo = np.asarray(bbox[0], np.float32)
-        hi = np.asarray(bbox[1], np.float32)
+        lo, hi = bbox
     else:
         tlo, thi = tris.bounds()
         lo = tlo.min(0).values.cpu().numpy()
         hi = thi.max(0).values.cpu().numpy()
-    pad = (hi - lo) * 1e-4 + 1e-4
-    lo = lo - pad
-    hi = hi + pad
+    lo, hi = padded_bounds(lo, hi)
     if dims3 is None and dims is None:
         cross_d = [min(d, 1023) for d in
                    density_dims(hi - lo, tris.count, cross_density)]

@@ -198,13 +198,20 @@ def trace_uniform_fast(grid: UniformGrid, rays, any_hit: bool = False,
 
 def trace_uniform(grid: UniformGrid, rays, refs_per_iter: int = 8,
                   any_hit: bool = False):
-    """Lockstep wavefront traversal to completion, no compaction."""
-    from ..ops.wavefront import trace_wavefront
+    """Wavefront traversal to completion. CUDA tensors: one launch of the
+    march kernel (ops/wavefront.trace). CPU tensors: the plain version,
+    trace_wavefront's lockstep march, no compaction. Any other device
+    raises."""
+    from ..ops import wavefront
+
+    if rays.org.device.type != "cpu":
+        return wavefront.trace(grid, uniform_lookup, rays,
+                               refs_per_iter=refs_per_iter, any_hit=any_hit)
 
     def lookup(voxel):
         return uniform_lookup(grid, voxel)
 
-    return trace_wavefront(rays, grid.tris, lookup, grid.cell_starts,
-                           grid.ref_ids, grid.bbox_lo, grid.bbox_hi,
-                           grid.dims, refs_per_iter=refs_per_iter,
-                           any_hit=any_hit)
+    return wavefront.trace_wavefront(
+        rays, grid.tris, lookup, grid.cell_starts, grid.ref_ids,
+        grid.bbox_lo, grid.bbox_hi, grid.dims, refs_per_iter=refs_per_iter,
+        any_hit=any_hit)

@@ -844,18 +844,22 @@ class _Frame:
 
 
 def _budgets(grid, n, any_hit, coherent, tile, slab, bmax, rowmax,
-             fine_bins=False):
+             fine_bins=False, compact=None):
     """(tile, slab, n_pad, bcaps, rowcaps) with the reference's defaults.
-    Coherent waves: the dense planner, tile 512, one round over the whole
-    grid (the in-kernel early-out stands in for re-planning). Incoherent
-    waves: binned rays, the compact planner, tile 256 and slabs of 8
-    slices, re-planned between slabs with tightened t-caps. Later rounds
-    run on a fraction of the round-0 budget `bmax` (round demands decay as
-    rays terminate); rowcaps (incoherent only) follow the same ladder from
+    `coherent` decides the ray layout: camera order, or binned by (axis,
+    sign) with the dead and padding groups in n_pad. `compact` (None: not
+    coherent) decides the planner. The dense planner: tile 512, one round
+    over the whole grid (the in-kernel early-out stands in for
+    re-planning). The compact planner: tile 256 and slabs of 8 slices,
+    re-planned between slabs with tightened t-caps. Later rounds run on a
+    fraction of the round-0 budget `bmax` (round demands decay as rays
+    terminate); rowcaps (compact only) follow the same ladder from
     `rowmax` live rows (default: a full unit budget's worth)."""
+    if compact is None:
+        compact = not coherent
     da_max = max(d[0] for d in grid.dims3)
-    tile = tile or (512 if coherent else 256)
-    slab = slab or (da_max if coherent else 8)
+    tile = tile or (256 if compact else 512)
+    slab = slab or (8 if compact else da_max)
     groups = _NGROUPS_FINE if fine_bins else _NGROUPS
     n_pad = (-(-n // tile) + (0 if coherent else groups)) * tile
     nt = n_pad // tile
@@ -876,7 +880,7 @@ def _budgets(grid, n, any_hit, coherent, tile, slab, bmax, rowmax,
 
     bcaps = tuple(cap(r) for r in range(-(-da_max // slab)))
     rowcaps = None
-    if not coherent:
+    if compact:
         rowmax = rowmax or bcaps[0] * _UPB
         rowcaps = tuple(max(4096, (-(-rowmax * b // bcaps[0]) // 8) * 8 + 8)
                         for b in bcaps)
@@ -888,24 +892,27 @@ def trace_sweep(grid: PacketGrid, rays: Rays, any_hit: bool = False,
                 bmax: int | None = None, return_overflow: bool = False,
                 coherent: bool = False, return_demand: bool = False,
                 fine_bins: bool | None = None, rmax: int | None = None,
-                rowmax: int | None = None):
+                compact: bool | None = None, rowmax: int | None = None):
     """Trace rays against a PacketGrid: closest hit, or with any_hit=True
     some hit in (tmin, tmax) (its t and id need not be the closest).
 
-    coherent=True: the rays are camera-ordered (primaries); they keep
-    their order and the dense planner runs. Otherwise they are binned by
-    (axis, sign) and the compact row-stream planner runs; fine_bins=True
+    coherent=True: the rays are camera-ordered (primaries) and keep their
+    order. Otherwise they are binned by (axis, sign); fine_bins=True
     (default off, as in the reference) also splits each bin by the signs
-    of the two minor direction components. The frame reads
-    nothing back to the host. If a round demands more than its budget
-    (`bmax` 768-ref blocks in round 0, `rowmax` live rows for the compact
-    planner), the surplus is dropped and the device-side overflow flag is
-    set (return_overflow=True). return_demand adds i32[2] = [peak round
-    block demand, peak round live rows (compact planner; 0 otherwise)]."""
+    of the two minor direction components. compact picks the planner
+    apart from the layout (None: the compact row-stream planner for
+    incoherent waves, the dense planner for coherent ones), and with it
+    the default tile and slab. The frame reads nothing back to the host.
+    If a round demands more than its budget (`bmax` 768-ref blocks in
+    round 0, `rowmax` live rows for the compact planner), the surplus is
+    dropped and the device-side overflow flag is set
+    (return_overflow=True). return_demand adds i32[2] = [peak round block
+    demand, peak round live rows (compact planner; 0 otherwise)]."""
     n = rays.count
     fine_bins = bool(fine_bins)   # None: the reference's default, off
     tile, slab, n_pad, bcaps, rowcaps = _budgets(
-        grid, n, any_hit, coherent, tile, slab, bmax, rowmax, fine_bins)
+        grid, n, any_hit, coherent, tile, slab, bmax, rowmax, fine_bins,
+        compact)
     frame = _Frame(grid, rays, tile, n_pad, coherent, fine_bins)
     best, overflow, demand_max, rows_max = frame.run(
         slab, bcaps, rmax or _RMAX, any_hit, rowcaps)
@@ -921,13 +928,13 @@ def trace_sweep(grid: PacketGrid, rays: Rays, any_hit: bool = False,
 def first_round_stream(grid: PacketGrid, rays: Rays, any_hit: bool = False,
                        coherent: bool = True, tile: int | None = None,
                        bmax: int | None = None, rowmax: int | None = None,
-                       fine_bins: bool = False):
+                       fine_bins: bool = False, compact: bool | None = None):
     """Round 0's sweep inputs (xt_round, gidx, tile_of, tminb, tile) for
     `rays` with trace_sweep's defaults, for holding the kernel against its
     plain version on a real stream."""
     tile, slab, n_pad, bcaps, rowcaps = _budgets(
         grid, rays.count, any_hit, coherent, tile, None, bmax, rowmax,
-        fine_bins)
+        fine_bins, compact)
     frame = _Frame(grid, rays, tile, n_pad, coherent, fine_bins)
     xt_round, gidx, tile_of, tminb = frame.stream(
         frame.initial_best()[0], frame.per_tile["k0"], slab, bcaps[0],

@@ -18,8 +18,13 @@ past a ray's end are no-ops, and the hits do not depend on how many run.
   results and a compaction of the survivors into a power-of-two batch,
   so the cost follows the live rays and not the slowest one.
 The two agree on the hits and steps of every ray that the safety cap
-does not cut. `trace_wavefront` (no compaction, any lookup callable)
-stays a lockstep loop of torch ops on every device.
+does not cut.
+
+`trace_wavefront` (loose arrays, any lookup callable, no compaction) is
+one lockstep loop of torch ops to completion, on any device: the plain
+version of `grid.irregular.trace_irregular` and `grid.uniform.
+trace_uniform`, which on CUDA tensors launch the march kernel through
+`trace` instead.
 
 Grid protocol: a grid exposes `.cell_starts`, `.ref_ids`, `.bbox_lo/hi`,
 `.tris` and `.fine_dims`, and `lookup_fn(grid, voxel i32[N, 3]) -> (cell,
@@ -429,10 +434,14 @@ def trace_wavefront(rays: Rays, tris, lookup, starts, ref_ids, bbox_lo,
                     bbox_hi, fine_dims, refs_per_iter: int = 8,
                     any_hit: bool = False,
                     max_iters: int | None = None) -> Hits:
-    """One lockstep march to completion, no compaction: the simple path
-    of the tests and small workloads. Whether a ray is still alive is
-    read once every _CHECK_EVERY iterations (the hits do not depend on
-    it)."""
+    """One lockstep march to completion, no compaction: the plain version
+    of trace_irregular and trace_uniform (the reference's compiled
+    while_loop, op for op), which no kernel serves itself: its lookup is
+    any callable `lookup(voxel) -> (cell, cmin, cmax)`. Whether a ray is
+    still alive is read once every _CHECK_EVERY iterations (the hits do
+    not depend on it). Records last_trace_stats (one round; the rays
+    still marching when max_iters ran out, with a warning) in one more
+    read."""
     g = _LooseGrid(cell_starts=starts, ref_ids=ref_ids, bbox_lo=bbox_lo,
                    bbox_hi=bbox_hi, tris=tris, fine_dims=tuple(fine_dims))
 
@@ -443,11 +452,17 @@ def trace_wavefront(rays: Rays, tris, lookup, starts, ref_ids, bbox_lo,
         max_iters = max_march_iters(fine_dims)
     state = _init_state(g, lookup_fn, rays)
     body = _make_body(g, lookup_fn, refs_per_iter, any_hit)
+    steps = torch.zeros((rays.count,), dtype=torch.int32,
+                        device=rays.org.device)
     it = 0
     while it < max_iters and bool(state["alive"].any()):
         for _ in range(min(_CHECK_EVERY, max_iters - it)):
+            steps += state["alive"].to(torch.int32)
             state = body(state)
         it += _CHECK_EVERY
+    truncated, step_total = torch.stack([
+        state["alive"].sum(), steps.sum()]).tolist()
+    _record(rays.count, truncated, 1, step_total, max_iters)
     return _hits(state["best_t"], state["best_id"], state["best_u"],
                  state["best_v"])
 
@@ -464,7 +479,7 @@ def _record(n: int, truncated: int, rounds: int, step_total: int,
     """last_trace_stats of a trace, and the warning of a cut one."""
     if truncated:
         warnings.warn(
-            f"wavefront.trace: safety cap {hard_cap} expired with "
+            f"wavefront: safety cap {hard_cap} expired with "
             f"{truncated} rays still marching; their hit records are "
             f"partial (see ops/wavefront.last_trace_stats)")
     last_trace_stats["truncated_rays"] = truncated

@@ -22,9 +22,6 @@ from .sampling import cosine_hemisphere, hit_points_normals
 # origin to stay robust across scene scales (the reference's ray epsilon).
 EPS_REL = 1e-3
 EPS_ABS = 1e-4
-# The path tracer's constant sky radiance and grey albedo.
-SKY = 1.0
-ALBEDO = 0.7
 
 
 def _norm(x):
@@ -37,12 +34,21 @@ def _spawn(p, n, d, t_near, t_far):
                 tmax=t_far)
 
 
-def trace_sorted(session, rays: Rays, any_hit: bool = False, cal_key=None):
-    """Incoherent-wave entry point: a 10-bit origin-major Morton sort,
-    the trace, and the scatter back to the caller's order."""
+def trace_sorted(session, rays: Rays, any_hit: bool = False,
+                 sort: str | bool = "origin", cal_key=None):
+    """Incoherent-wave entry point: a coherence sort, the trace, and the
+    scatter back to the caller's order. sort="origin" (the default): the
+    10-bit origin-major Morton sort; any other true value: the 7-bit
+    direction-octant-major sort (measured worse on camera-derived waves;
+    for waves with no origin locality); a false value: the caller's order,
+    no sort and no scatter."""
+    if not sort:
+        return session.trace(rays, any_hit=any_hit, cal_key=cal_key)
     grid = session.grid
+    om = sort == "origin"
     sorted_rays, perm = sortrays.sort_rays(
-        rays, grid.bbox_lo, grid.bbox_hi, bits=10, origin_major=True)
+        rays, grid.bbox_lo, grid.bbox_hi, bits=10 if om else 7,
+        origin_major=om)
     hits = session.trace(sorted_rays, any_hit=any_hit, cal_key=cal_key)
     return sortrays.unsort(hits, perm)
 
@@ -56,17 +62,25 @@ def ao_rays(p, n, found, max_dist: float, generator: torch.Generator):
 
 
 def default_ao_distance(session) -> float:
-    """0.1 x the scene's largest extent (one host read)."""
-    grid = session.grid
-    return float((grid.bbox_hi - grid.bbox_lo).max()) * 0.1
+    """0.1 x the largest extent of the grid's bounds: from the session's
+    host copy where it has one (RenderSession.host_bounds), else one
+    device read."""
+    bounds = session.host_bounds()
+    if bounds is None:
+        grid = session.grid
+        return float((grid.bbox_hi - grid.bbox_lo).max()) * 0.1
+    lo, hi = bounds
+    return float((hi - lo).max()) * 0.1
 
 
 def ambient_occlusion(session, rays: Rays, hits, generator: torch.Generator,
-                      n_samples: int = 4):
+                      n_samples: int = 4, max_dist: float | None = None):
     """AO estimate in [0, 1] per ray (1 = fully open), occluders within
-    0.1 x the scene's largest extent. Misses get 0."""
+    max_dist (None: default_ao_distance, 0.1 x the scene's largest
+    extent). Misses get 0."""
     p, n, found = hit_points_normals(rays, hits, session.grid.tris.n)
-    max_dist = default_ao_distance(session)
+    if max_dist is None:
+        max_dist = default_ao_distance(session)
     acc = torch.zeros((rays.count,), dtype=torch.float32, device=p.device)
     for _ in range(n_samples):
         sec = ao_rays(p, n, found, max_dist, generator)
@@ -126,10 +140,19 @@ def render_ao(session, cam, width: int, height: int, seed: int = 0,
     return img.reshape(height, width, 3), hits
 
 
+def _jitter(n: int, generator: torch.Generator, device):
+    """A frame's pixel jitter, f32[n, 2] uniform in [0, 1) (kept apart so
+    that tests can feed the reference's draws)."""
+    return torch.rand((n, 2), generator=generator, device=device)
+
+
 def path_trace(session, cam, width: int, height: int, seed: int = 0,
-               spp: int = 1, max_bounces: int = 4):
+               spp: int = 1, max_bounces: int = 4, sky=1.0,
+               albedo: float = 0.7):
     """Diffuse (Lambertian) path tracer with bounce compaction (BASELINE
-    config #3): constant sky light, grey albedo. Bounce waves keep their
+    config #3): constant sky light `sky` (a float, or a tensor that
+    broadcasts to the n = width x height pixels in block order on the
+    session's device), grey albedo `albedo`. Bounce waves keep their
     pixel order into the origin sort; dead rays get tmax = 0 and land in
     the binning's dead group, which the planner skips. Rays still alive
     after max_bounces contribute nothing."""
@@ -139,7 +162,7 @@ def path_trace(session, cam, width: int, height: int, seed: int = 0,
     gen = torch.Generator(device=dev).manual_seed(seed)
     tri_n = session.grid.tris.n
     for _ in range(spp):
-        jitter = torch.rand((n, 2), generator=gen, device=dev)
+        jitter = _jitter(n, gen, dev)
         rays = primary_rays(cam, width, height, jitter=jitter,
                             order="block", device=dev)
         throughput = torch.ones((n,), dtype=torch.float32, device=dev)
@@ -151,9 +174,9 @@ def path_trace(session, cam, width: int, height: int, seed: int = 0,
                     else trace_sorted(session, rays, cal_key="path"))
             found = hits.tri_id >= 0
             radiance = radiance + torch.where(live & ~found,
-                                              throughput * SKY, 0.0)
+                                              throughput * sky, 0.0)
             live = live & found
-            throughput = throughput * ALBEDO
+            throughput = throughput * albedo
             p, nrm, _ = hit_points_normals(rays, hits, tri_n)
             d = cosine_hemisphere(nrm, gen)
             tmax = torch.where(live, float("inf"), 0.0)

@@ -63,6 +63,8 @@ class RenderSession:
     _bmax_cal: dict = dataclasses.field(default_factory=dict)
     # Per-wave-key accumulated overflow flags (device bools).
     _ovf: dict = dataclasses.field(default_factory=dict)
+    # (packet grid, its (lo, hi) as the build computed them on the host).
+    _host_bounds: tuple | None = None
 
     @staticmethod
     def create(tris: Triangles, params: BuildParams | None = None,
@@ -115,7 +117,18 @@ class RenderSession:
         if self.bbox is None:
             self.bbox = (self.grid.bbox_lo.cpu().numpy(),
                          self.grid.bbox_hi.cpu().numpy())
+            bounds = self.bbox
+        else:
+            bounds = packet.padded_bounds(*self.bbox)
+        self._host_bounds = (self.grid, bounds) if tris.count else None
         return self.grid.total_refs
+
+    def host_bounds(self):
+        """The current grid's (lo, hi) on the host, float32, where the
+        session knows them without a device read (the packet grid it
+        built itself); else None."""
+        grid, bounds = self._host_bounds or (None, None)
+        return bounds if grid is self.grid else None
 
     def trace(self, rays: Rays, any_hit: bool = False,
               coherent: bool = False, cal_key=None) -> Hits:

@@ -8,6 +8,7 @@ the CPU from the host clock. `device_trace` wraps `torch.profiler`.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import statistics
 import time
 
@@ -40,6 +41,22 @@ class _Clock:
         return time.perf_counter() - self.t0
 
 
+def _block(x):
+    """Wait for the card work that produces the tensors in x."""
+    if torch.is_tensor(x):
+        if x.is_cuda:
+            torch.cuda.synchronize(x.device)
+    elif isinstance(x, dict):
+        for v in x.values():
+            _block(v)
+    elif isinstance(x, (list, tuple)):
+        for v in x:
+            _block(v)
+    elif dataclasses.is_dataclass(x):
+        for f in dataclasses.fields(x):
+            _block(getattr(x, f.name))
+
+
 class StageTimer:
     """Accumulates per-stage times (device time between CUDA events for
     device="cuda", host time otherwise); prints a breakdown table."""
@@ -49,10 +66,15 @@ class StageTimer:
         self.stages: dict[str, float] = {}
 
     @contextlib.contextmanager
-    def stage(self, name: str):
+    def stage(self, name: str, block_on=None):
+        """Time the body. block_on: tensors (one, or a list, tuple, dict
+        or dataclass of them) whose card work the host clock waits for
+        before it stops; CUDA events already time that work."""
         clock = _Clock(self.device)
         clock.start()
         yield
+        if block_on is not None:
+            _block(block_on)
         self.stages[name] = self.stages.get(name, 0.0) + clock.stop()
 
     def report(self) -> str:

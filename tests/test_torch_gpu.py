@@ -928,3 +928,112 @@ def test_march_trace_reads_the_device_once(cuda, monkeypatch, kind,
     before = wavefront.launches["wavefront_march"]
     wavefront.trace(g, lk, rays, any_hit=any_hit)
     assert reads.at == [before + 1]
+
+
+def _refuse(what):
+    def f(*a, **k):
+        raise AssertionError(f"{what} ran on the card")
+    return f
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("any_hit", [False, True], ids=["closest", "any"])
+@pytest.mark.parametrize("coherent,compact", [(True, True), (False, False)],
+                         ids=["coherent-compact", "binned-dense"])
+def test_planner_apart_from_layout_on_card(cuda, monkeypatch, coherent,
+                                           compact, any_hit):
+    """trace_sweep with the compact planner on camera-ordered primaries
+    and the dense planner on binned random rays: no call of
+    sweep_blocks_plain, one kernel launch or more, no overflow, hits
+    against the oracle (_check's thresholds; any hit: hit/miss on more
+    than 99.9%). Their round-0 streams through the kernel equal its plain
+    version bit for bit: closest hit ids and the bits of t, u and v on
+    every ray of a swept tile; any hit, hit/miss."""
+    from hagrid_tpu_torch.core.types import Rays
+    from hagrid_tpu_torch.ops.sweep_trace import (first_round_stream,
+                                                  trace_sweep)
+    v, f = scenes.sponza_like(20000)
+    tris = Triangles.from_mesh(v, f, device=cuda)
+    grid = build_packet(tris)
+    if coherent:
+        rays = primary_rays(scenes.sponza_camera(), 128, 128,
+                            order="block", device=cuda)
+    else:
+        rng = np.random.default_rng(4)
+        n, lo, hi = 8192, v.min(0), v.max(0)
+        org = rng.uniform(lo + 0.05 * (hi - lo), hi - 0.05 * (hi - lo),
+                          (n, 3)).astype(np.float32)
+        d = rng.normal(size=(n, 3)).astype(np.float32)
+        d /= np.linalg.norm(d, axis=1, keepdims=True)
+        tmax = np.full(n, 3.0 if any_hit else np.inf, np.float32)
+        rays = Rays.make(org, d, None, tmax, device=cuda)
+    # Random rays cross the whole grid: the default budget (6 or 12
+    # blocks a tile) is for waves with origin locality, and the dense
+    # planner would overflow it (flagged).
+    kw = dict(any_hit=any_hit, coherent=coherent, compact=compact,
+              bmax=None if coherent else 8192)
+    name = "sweep_blocks_anyhit" if any_hit else "sweep_blocks"
+    with monkeypatch.context() as mp:
+        mp.setattr(sk, "sweep_blocks_plain", _refuse("sweep_blocks_plain"))
+        before = launches[name]
+        hits, ovf, demand = trace_sweep(grid, rays, return_overflow=True,
+                                        return_demand=True, **kw)
+        torch.cuda.synchronize()
+    assert launches[name] > before and not bool(ovf)
+    assert (int(demand[1]) > 0) == compact
+    if any_hit:
+        want = oracle.any_hit(rays, tris)
+        assert ((hits.tri_id >= 0) == want).float().mean() > 0.999
+    else:
+        _check_on_card(hits, oracle.closest_hit(rays, tris))
+    xt, gidx, tile_of, tminb, tile = first_round_stream(grid, rays, **kw)
+    got = sweep_blocks(xt, grid.cols, gidx, tile_of, tminb, tile,
+                       any_hit=any_hit)
+    ref = sweep_blocks_plain(xt, grid.cols, gidx, tile_of, tminb, tile,
+                             any_hit=any_hit)
+    nt = xt.shape[1] // tile - 1
+    swept = torch.zeros(nt + 1, dtype=torch.bool, device=cuda)
+    swept[tile_of.long()] = True
+    rows = swept[:nt].repeat_interleave(tile)
+    m = rows.numel()
+    assert int(rows.sum()) > 0
+    if any_hit:
+        assert torch.equal(got[1][:m][rows] >= 0, ref[1][:m][rows] >= 0)
+    else:
+        assert torch.equal(got[1][:m][rows], ref[1][:m][rows])
+        for k in (0, 2, 3):
+            assert torch.equal(got[k][:m][rows].view(torch.int32),
+                               ref[k][:m][rows].view(torch.int32)), k
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("any_hit", [False, True], ids=["closest", "any"])
+@pytest.mark.parametrize("structure", ["irregular", "uniform"])
+def test_lockstep_entry_points_launch_the_march_kernel(cuda, monkeypatch,
+                                                       structure, any_hit):
+    """trace_irregular / trace_uniform on CUDA tensors: one launch of the
+    march kernel a call, and never trace_wavefront, trace_plain or
+    segment_plain; tri ids and the bits of t/u/v equal trace_wavefront
+    run on the card; no ray truncated."""
+    from hagrid_tpu_torch.ops import wavefront
+    kind = "quad" if structure == "irregular" else "uniform"
+    g, lk, rays = _march_case(kind, "soup150", cuda)
+    entry = (irregular.trace_irregular if structure == "irregular"
+             else uniform.trace_uniform)
+    if structure == "irregular":
+        want = wavefront.trace_wavefront(
+            rays, g.tris, g.lookup, g.cell_starts, g.ref_ids, g.bbox_lo,
+            g.bbox_hi, g.fine_dims, any_hit=any_hit)
+    else:
+        want = wavefront.trace_wavefront(
+            rays, g.tris, lambda vox: lk(g, vox), g.cell_starts, g.ref_ids,
+            g.bbox_lo, g.bbox_hi, g.dims, any_hit=any_hit)
+    assert wavefront.last_trace_stats["truncated_rays"] == 0
+    for name in ("trace_wavefront", "trace_plain", "segment_plain"):
+        monkeypatch.setattr(wavefront, name, _refuse(name))
+    before = wavefront.launches["wavefront_march"]
+    got = entry(g, rays, any_hit=any_hit)
+    assert wavefront.launches["wavefront_march"] == before + 1
+    assert wavefront.last_trace_stats["truncated_rays"] == 0
+    _assert_hits_bit_equal(got, want, structure)
+    assert (got.tri_id >= 0).any()
