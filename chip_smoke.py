@@ -51,10 +51,17 @@ Phases, one line each (any failure exits non-zero before the result):
    graph replays, as path A times it); K5-K7, of which
    only the last block's sums come back, also have every block's column
    sums compared and are timed at B and B/2 blocks (the ratio shows the
-   time covers every block); K6/K7 also as one library product
-   (`dots_bf16_library`, checked against the plain version and timed:
-   library_ms, with its own byte bound); their SASS must show HGMMA and
-   no local memory (hagrid_tpu_torch.exp.sass, [sass]); then the
+   time covers every block); K5's plain instance must equal its plain
+   version bit for bit, its FMA instance and its library product
+   (`dots_fp32_library`, one FP32 torch.mm: library_ms with its own
+   bound) lie within the element bound of their rounding chains
+   (micro_kernels.dots_fp32_exact), and the SM clock under load is
+   sampled beside each instance ([k5] lines); K6/K7 also as one library
+   product (`dots_bf16_library`, checked against the plain version and
+   timed: library_ms, with its own byte bound); the SASS of K5 shows its
+   row loop's FP32 instructions and shared loads per pair, no local
+   memory, FFMA in the FMA instance only and bulk copies, and K6/K7's
+   HGMMA and no local memory (hagrid_tpu_torch.exp.sass, [sass]); then the
    two records through the entry points a user calls
    (hagrid_tpu_torch.exp.kernel_mt20.run and .mxu_micro.run) with the
    launch counts from zero;
@@ -222,6 +229,11 @@ BF16_TOL = 1e-4
 # K5's FMA instance against the plain version, which rounds the multiply
 # and the add of each of its 33 multiply-adds separately.
 FMA_TOL = 1e-5
+# K5's FP32 instructions a pair when every operation is one (37), and in
+# the FMA instance: 15 FFMA, 3 FMUL, 4 FADD (22). Its innermost loop does
+# one row of a stream block: 6 refs x 8 rays of a thread.
+DOTS_INSNS_PER_PAIR = {False: 37, True: 22}
+K5_LOOP_PAIRS = 6 * 8
 AO_SIZE, AO_SAMPLES = 1024, 4
 LIGHT = (15.0, 14.0, 6.0)       # inside the closed 30 x 15 x 12 hall
 PATH_SIZE, PATH_BOUNCES = 512, 4
@@ -2114,10 +2126,202 @@ def nbytes(*tensors):
     return sum(x.numel() * x.element_size() for x in tensors)
 
 
+def sm_clock_under(fn, seconds=1.0):
+    """Mean SM clock (MHz) and power draw (W) that nvidia-smi samples
+    every 50 ms while fn() runs back to back for about `seconds`, after as
+    long again to reach a steady clock."""
+    def busy(t):
+        t0 = time.perf_counter()
+        while time.perf_counter() - t0 < t:
+            for _ in range(20):
+                fn()
+            torch.cuda.synchronize()
+
+    busy(seconds)
+    proc = subprocess.Popen(
+        ["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
+         "--format=csv,noheader,nounits", "-lms", "50"],
+        stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+    try:
+        busy(seconds)
+    finally:
+        proc.terminate()
+        out = proc.communicate(timeout=30)[0]
+    rows = []
+    for line in out.splitlines():
+        try:
+            rows.append([float(v) for v in line.split(",")][:2])
+        except ValueError:   # a field nvidia-smi cannot read: [N/A]
+            pass
+    check(rows and all(len(r) == 2 for r in rows),
+          f"nvidia-smi gave no clock samples: {out[:200]!r}")
+    return (sum(r[0] for r in rows) / len(rows),
+            sum(r[1] for r in rows) / len(rows))
+
+
+def kernel_profile_ms(fn, name, runs=10):
+    """Device time a launch of the kernel whose name holds `name`, from
+    torch.profiler over `runs` back-to-back calls of fn (None when the
+    profiler saw no such kernel)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as tprofile
+    fn()
+    torch.cuda.synchronize()
+    with tprofile(activities=[ProfilerActivity.CPU,
+                              ProfilerActivity.CUDA]) as prof:
+        for _ in range(runs):
+            fn()
+        torch.cuda.synchronize()
+    hits = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and name in e.key]
+    n = sum(e.count for e in hits)
+    return sum(e.self_device_time_total for e in hits) / 1e3 / n \
+        if n else None
+
+
+def dots_fp32_census(library_sass):
+    """K5's two instances in the built library's SASS (exp/sass.run's
+    record): their row loop's
+    instructions per pair (the loop does K5_LOOP_PAIRS pairs; its count
+    includes the last block's stores, a few a row), checked: no local
+    memory, FFMA in the FMA instance only, the ring's bulk copies, one
+    row's 24 shared coefficient loads in the loop."""
+    got = {}
+    for name, (counts, body) in library_sass.items():
+        if "dots_fp32_kernel" not in name:
+            continue
+        fma = any(t in name for t in ("(bool)1", "<true>", "ILb1E"))
+        print(f"[sass] {name}: " + ", ".join(
+            f"{k} {v}" for k, v in counts.items()), flush=True)
+        check(not (counts.get("LDL") or counts.get("STL")),
+              f"{name}: local memory (LDL/STL)")
+        check(bool(counts.get("FFMA")) == fma,
+              f"{name}: FFMA {counts.get('FFMA', 0)} in the "
+              f"{'FMA' if fma else 'plain'} instance")
+        check(counts.get("UBLKCP", 0) > 0, f"{name}: no bulk copy")
+        check(body is not None and body.get("LDS") == 24,
+              f"{name}: no row loop with 24 shared loads: {body}")
+        per = {k: body.get(k, 0) / K5_LOOP_PAIRS
+               for k in ("instructions", "FFMA", "FMUL", "FADD", "LDS")}
+        print(f"[sass] {name}: row loop per pair: " + ", ".join(
+            f"{k} {v:.3f}" for k, v in per.items()), flush=True)
+        got[fma] = per
+    check(sorted(got) == [False, True],
+          f"SASS: dots_fp32_kernel instances {sorted(got)}, expected both")
+    return got
+
+
+def dots_fp32_entries(xt, g, card, library_sass):
+    """K5 in phase 11: both instances against the plain version (the
+    plain one bit for bit, the FMA one within FMA_TOL and the element
+    bound), the library product against the element bound, times, bounds,
+    the SM clock under load and the SASS census. Returns the kernels
+    line's dots_fp32 and dots_fp32_fma entries."""
+    n_blocks = g.shape[0] // mk.BLOCK_ROWS
+    hb = n_blocks // 2
+    pairs = n_blocks * REFS_PER_BLOCK * TILE
+    props = torch.cuda.get_device_properties(0)
+    ctas = min(n_blocks, props.multi_processor_count)
+    # The persistent grid's last round: blocks over CTAs x rounds.
+    tail = n_blocks / (ctas * -(-n_blocks // ctas))
+    per_pair = dots_fp32_census(library_sass)
+    want = mk.dots_fp32_plain(xt, g)
+    exact = mk.dots_fp32_exact(xt, g)
+    plain_ms = cuda_ms(lambda: mk.dots_fp32_plain(xt, g), iters=1,
+                       warmup=0)
+    torch.cuda.synchronize()
+
+    library = mk.dots_fp32_library(xt, g)
+    sums = library()
+    lib_ratio = mk.bound_ratio((sums[-1], sums.sum(1)), exact,
+                               mk.LIBRARY_CHAINS)
+    del sums
+    print(f"[k5] dots_fp32_library (one FP32 torch.mm, TF32 off), "
+          f"{n_blocks} blocks x {TILE} rays: |err| / element bound "
+          f"(k = {mk.LIBRARY_CHAINS}) last block {lib_ratio[0]:.4f}, "
+          f"column sums {lib_ratio[1]:.4f}", flush=True)
+    check(max(lib_ratio) <= 1, "dots_fp32_library beyond its element "
+          f"bound: {lib_ratio}")
+    library_ms = cuda_ms(library, iters=20, warmup=2)
+    # It reads g and writes every block's (128, T) sums.
+    lib_b = micro_bound("dots_fp32 (library product)",
+                        2 * n_blocks * mk.BLOCK_ROWS * 128 * TILE, FP32_PEAK,
+                        nbytes(g, xt) + 4 * n_blocks * mk.BLOCK_ROWS * TILE)
+    print(f"[k5] dots_fp32_library: {library_ms:.4f} ms, bound "
+          f"{lib_b['bound_ms']:.4f} ms ({card})", flush=True)
+    del library
+
+    entries = {}
+    for fma, key in ((False, "dots_fp32"), (True, "dots_fp32_fma")):
+        got = mk.dots_fp32(xt, g, fma=fma)
+        torch.cuda.synchronize()
+        ratio = mk.bound_ratio(got, exact)
+        errs = [float((a - w).abs().max()) for a, w in zip(got, want)]
+        tols = [FMA_TOL * float(w.abs().max()) for w in want]
+        same = all(torch.equal(a, w) for a, w in zip(got, want))
+        print(f"[k5] {key}, {n_blocks} blocks x {TILE} rays: last block's "
+              f"sums and all {n_blocks} blocks' column sums equal to plain "
+              f"{same}; max |err| {errs[0]:.3e}, {errs[1]:.3e} (FMA_TOL "
+              f"{tols[0]:.3e}, {tols[1]:.3e}); |err| / element bound "
+              f"(k = {mk.KERNEL_CHAINS}) {ratio[0]:.4f}, {ratio[1]:.4f}",
+              flush=True)
+        if fma:
+            check(errs[0] <= tols[0] and errs[1] <= tols[1],
+                  f"{key} differs from the plain version beyond {FMA_TOL} "
+                  f"x max|ref|")
+            check(max(ratio) <= 1, f"{key} beyond its element bound: "
+                  f"{ratio}")
+        else:
+            check(same, f"{key} differs from its plain version")
+        ms, _ = timed_pair(
+            key, lambda: mk.dots_fp32(xt, g, fma=fma),
+            lambda: mk.dots_fp32(xt, g[:hb * mk.BLOCK_ROWS], fma=fma), None,
+            card)
+        mhz, watts = sm_clock_under(lambda: mk.dots_fp32(xt, g, fma=fma))
+        prof_ms = kernel_profile_ms(lambda: mk.dots_fp32(xt, g, fma=fma),
+                                    "dots_fp32_kernel")
+        # Operations at the FP32 peak, as for K1-K4 (an FMA counts 2);
+        # beside it the FP32 instructions the function needs at the issue
+        # rate, and what the row loop issues at the measured clock, over
+        # the last round's share.
+        b = micro_bound(key, pairs * DOTS_OPS_PER_PAIR, FP32_PEAK,
+                        nbytes(xt, g, *got))
+        b["bound_ms_instructions"] = micro_bound(
+            f"{key}, FP32 instructions", pairs * DOTS_INSNS_PER_PAIR[fma],
+            FP32_ISSUE, nbytes(xt, g, *got))["bound_ms"]
+        lanes = props.multi_processor_count * 128 * mhz * 1e6
+        issue_ms = pairs * per_pair[fma]["instructions"] / lanes * 1e3
+        print(f"[k5] {key}: {ms:.4f} ms ({card}); SM clock under load "
+              f"{mhz:.0f} MHz, {watts:.0f} W; the row loop's "
+              f"{per_pair[fma]['instructions']:.3f} instructions a pair at "
+              f"that clock {issue_ms:.4f} ms, over the persistent grid's "
+              f"last round ({n_blocks} blocks on {ctas} CTAs: {tail:.4f}) "
+              f"{issue_ms / tail:.4f} ms = {issue_ms / tail / ms:.3f} of "
+              f"the time; torch.profiler: "
+              + (f"{prof_ms:.4f} ms a launch" if prof_ms else "no kernel "
+                 "event seen"), flush=True)
+        entries[key] = dict(
+            name=key, replaces="exp/r4_mxu_micro.py:68 (K5, vpu_kernel"
+            + ("; the instance with explicit FMAs)" if fma else ")"),
+            max_abs_err=errs[0], ms=ms, plain_ms=plain_ms,
+            library_ms=library_ms, library_bound_ms=lib_b["bound_ms"],
+            library_bound_by=lib_b["bound_by"],
+            element_bound_ratio=list(ratio),
+            library_element_bound_ratio=list(lib_ratio),
+            sass_per_pair=per_pair[fma], sm_clock_mhz=mhz,
+            power_draw_w=watts, issue_ms_at_clock=issue_ms,
+            profiler_ms=prof_ms,
+            last_round_share=tail, **b)
+        del got
+    return entries
+
+
 def micro_phase(card, dev):
     """Phase 11: K4-K7 against their plain versions at full shape, their
     times and bounds, then path A's two records with launch counts from
     zero. Returns the kernels' entries for the JSON line."""
+    library_sass = sass.run()
     entries = {}
     # K4 on the decomposition's stream: never done, always done, and a
     # threshold of +0.0 on every second block (skipped once all mins < 0).
@@ -2162,59 +2366,14 @@ def micro_phase(card, dev):
     xt, g, phi, c = mxu_micro.inputs(device=DEV)
     n_blocks = g.shape[0] // mk.BLOCK_ROWS
     hb = n_blocks // 2
-    pairs = n_blocks * REFS_PER_BLOCK * TILE
-    got, want = mk.dots_fp32(xt, g), mk.dots_fp32_plain(xt, g)
-    torch.cuda.synchronize()
-    same = all(torch.equal(a, b) for a, b in zip(got, want))
-    print(f"[micro] dots_fp32 (K5), {n_blocks} blocks x {TILE} rays: last "
-          f"block's sums and all {n_blocks} blocks' column sums equal to "
-          f"plain {same}", flush=True)
-    check(same, "dots_fp32 differs from its plain version")
-    ms, plain_ms = timed_pair(
-        "dots_fp32 (K5)", lambda: mk.dots_fp32(xt, g),
-        lambda: mk.dots_fp32(xt, g[:hb * mk.BLOCK_ROWS]),
-        lambda: mk.dots_fp32_plain(xt, g), card)
-    # Operations at the FP32 peak, as for K1-K4; its function rounds every
-    # multiply and add, one instruction each: bound_ms_no_fma.
-    b = micro_bound("dots_fp32 (K5)", pairs * DOTS_OPS_PER_PAIR, FP32_PEAK,
-                    nbytes(xt, g, *got))
-    b["bound_ms_no_fma"] = micro_bound(
-        "dots_fp32 (K5), one instruction an operation",
-        pairs * DOTS_OPS_PER_PAIR, FP32_ISSUE, nbytes(xt, g, *got))[
-            "bound_ms"]
-    entries["dots_fp32"] = dict(
-        name="dots_fp32", replaces="exp/r4_mxu_micro.py:68 (K5, vpu_kernel)",
-        max_abs_err=max_diff(got, want), ms=ms, plain_ms=plain_ms, **b)
-    # The same kernel with explicit FMAs: one rounding per multiply-add
-    # where the plain version has two.
-    got_f = mk.dots_fp32(xt, g, fma=True)
-    torch.cuda.synchronize()
-    errs = [float((a - w).abs().max()) for a, w in zip(got_f, want)]
-    tols = [FMA_TOL * float(w.abs().max()) for w in want]
-    print(f"[micro] dots_fp32_fma (K5 with FMAs): last block's sums max "
-          f"|err| {errs[0]:.3e} (tolerance {tols[0]:.3e}), column sums max "
-          f"|err| {errs[1]:.3e} (tolerance {tols[1]:.3e})", flush=True)
-    check(errs[0] <= tols[0] and errs[1] <= tols[1],
-          f"dots_fp32_fma differs from the plain version beyond {FMA_TOL} "
-          f"x max|ref|")
-    ms, _ = timed_pair(
-        "dots_fp32_fma", lambda: mk.dots_fp32(xt, g, fma=True),
-        lambda: mk.dots_fp32(xt, g[:hb * mk.BLOCK_ROWS], fma=True), None,
-        card)
-    b = micro_bound("dots_fp32_fma", pairs * DOTS_OPS_PER_PAIR, FP32_PEAK,
-                    nbytes(xt, g, *got))
-    entries["dots_fp32_fma"] = dict(
-        name="dots_fp32_fma", replaces="exp/r4_mxu_micro.py:68 (K5, "
-        "vpu_kernel; the instance with explicit FMAs)", max_abs_err=errs[0],
-        ms=ms, plain_ms=plain_ms, **b)
-
+    entries.update(dots_fp32_entries(xt, g, card, library_sass))
     flops = 2 * n_blocks * mk.BLOCK_C_ROWS * mk.DOT_DEPTH * TILE
     exact = (c[-mk.BLOCK_C_ROWS:].double().reshape(-1, mk.BLOCK_ROWS,
                                                    mk.DOT_DEPTH).sum(0)
              @ phi.double())
     # K6/K7 (two instances) must run on the tensor cores' warpgroup
     # products and keep their accumulators in registers.
-    census = {name: counts for name, counts in sass.run().items()
+    census = {name: counts for name, (counts, _) in library_sass.items()
               if "dots_bf16_kernel" in name}
     check(len(census) == 2, f"SASS: {len(census)} dots_bf16_kernel "
           f"instances, expected 2 (K6, K7): {sorted(census)}")
@@ -2300,7 +2459,8 @@ def micro_phase(card, dev):
     check(rec_a["skipped_ms"] < rec_a["det3_ms"] < rec_a["full_ms"],
           "the decomposition is not ordered skipped < det3 < full")
     for key, e in entries.items():
-        # Only K6/K7's function is one library call (a matrix product).
+        # K5's function is one FP32 torch.mm, K6/K7's one bf16 torch.mm;
+        # K4's (a planned sweep with an early out) is no library call.
         e.setdefault("library_ms", None)
         e.update(route="cuda", source=MICRO_SOURCE, launches=counts[key])
     return list(entries.values())

@@ -15,17 +15,29 @@
 //   per piece are what it is there to expose.
 //   `full - det3` is the production body, `det3 - skipped` the staging.
 //
-// K5, dots_fp32_kernel: replaces exp/r4_mxu_micro.py::vpu_kernel. Per
-//   stream block of 128 rows x 6 refs and 512 rays: det, f - o.n,
-//   m.b + d.c, m.d' + d.e in FP32, all four summed over a row's 6 refs.
-//   Bound: FP32 operations (37 per pair, no FMA: the library is built with
-//   -fmad=false like the production kernel, whose share it measures). One
-//   CUDA block per stream block, the block's coefficients staged in 16 KB
-//   pieces and read as broadcasts, two rays a thread in registers. A
-//   second instance, dots_fp32_kernel<true>, writes every multiply-add as
-//   an explicit __fmaf_rn (23 instructions per pair instead of 37): what
-//   contraction would buy the sweep, at the price of rounding once where
-//   the plain version rounds twice.
+// K5, dots_fp32_kernel<false / true>: replaces
+//   exp/r4_mxu_micro.py::vpu_kernel. Per stream block of 128 rows x 6
+//   refs and 512 rays: det = d.n, tt = f - o.n, uu = m.b + d.c,
+//   vv = m.d' + d.e in FP32, added into the row's accumulator as
+//   acc + det + tt + uu + vv, ref after ref. Bound: FP32 operations (37
+//   per pair); since the library is built with -fmad=false like the
+//   production kernel, whose share it measures, the plain instance issues
+//   one instruction an operation and its ceiling is that issue rate. The
+//   FMA instance writes each form as its own chain of __fmaf_rn (tt's
+//   chain starts from f, the origin negated once per ray): 22
+//   instructions a pair, each form still a value of its own.
+//   Design (Hopper): a persistent grid, one CTA per SM walking the stream
+//   blocks with a stride of the grid. Each of 256 consumer threads keeps 8
+//   rays' 9 features in registers, so that one broadcast of a ref's 16
+//   coefficients (four 16-byte shared loads) serves 8 pairs; the 64
+//   threads that cover the 512 rays form a row group, and the four groups
+//   take rows 4j, 4j + 1, 4j + 2, 4j + 3 of the block. A producer warp
+//   streams the blocks through a ring of 16 mbarrier-guarded 8 KB stages
+//   (16 rows each, two blocks in flight) with 1-D bulk copies, so that no
+//   copy waits on a barrier of all threads. A block's column sums: each
+//   group adds its 32 rows in order, then the four groups' sums are added
+//   in group order through shared memory. The owner of the last block
+//   writes out.
 //
 // K6 / K7, dots_bf16_kernel<false / true>: replace
 //   exp/r4_mxu_micro.py::mxu1_kernel and ::mxu3_kernel. Per stream block,
@@ -74,11 +86,86 @@ using namespace sweep_shell;
 
 constexpr int kTile = 512;          // rays of K5-K7
 constexpr int kBlockRows = 128;     // group rows per stream block
-constexpr int kDotThreads = 256;
-// K5 stages its block in 16 KB pieces of 32 group rows (its own layout,
-// independent of the sweep shell's ring).
-constexpr int kDotPieceRows = 32;
-constexpr int kDotPieceF4 = kDotPieceRows * kRowF4;
+// A barrier wait that outlasts this traps, so a fault in a pipeline ends
+// the launch with an error instead of hanging the card.
+constexpr unsigned long long kWaitLimitNs = 4000000000ull;
+
+// ------------------------------------------ barriers and bulk copies (K5-K7)
+
+__device__ __forceinline__ void mbar_init_count(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ bool mbar_try(uint32_t bar, uint32_t parity) {
+  uint32_t ok;
+  asm volatile(
+      "{\n\t.reg .pred p;\n\t"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(ok)
+      : "r"(bar), "r"(parity)
+      : "memory");
+  return ok != 0;
+}
+
+__device__ __forceinline__ unsigned long long global_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(t));
+  return t;
+}
+
+// Wait for the phase of parity `parity` of the barrier at `bar`.
+__device__ __forceinline__ void mbar_wait_bounded(uint32_t bar,
+                                                  uint32_t parity) {
+  if (mbar_try(bar, parity)) return;
+  const unsigned long long t0 = global_ns();
+  while (!mbar_try(bar, parity))
+    if (global_ns() - t0 > kWaitLimitNs) __trap();
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+// Arm the barrier at `bar` with `bytes` and start one 1-D bulk copy of
+// them from global `src` to shared `dst`; the barrier's phase completes
+// when they have landed.
+__device__ __forceinline__ void bulk_copy(uint32_t dst, const void* src,
+                                          int bytes, uint32_t bar) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// CTAs of `kernel` resident on the whole card at once (computed once per
+// instance into `cache`, after raising its dynamic shared memory limit).
+template <typename Kernel>
+cudaError_t resident_ctas(Kernel kernel, int threads, int smem_bytes,
+                          int& cache) {
+  if (cache > 0) return cudaSuccess;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+  int dev = 0, sms = 0, per_sm = 0;
+  if (e == cudaSuccess) e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                      threads, smem_bytes);
+  if (e != cudaSuccess) return e;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  cache = per_sm * sms;
+  return cudaSuccess;
+}
 
 // ---------------------------------------------------------------- K4
 
@@ -103,6 +190,20 @@ struct DetBody {
 
 // ---------------------------------------------------------------- K5
 
+constexpr int kDotConsumers = 256;                 // eight warps
+constexpr int kDotThreads = kDotConsumers + 32;    // and the producer warp
+constexpr int kDotRays = 8;                        // rays a consumer thread
+constexpr int kDotSet = kTile / kDotRays;          // threads of a row group
+constexpr int kDotGroups = kDotConsumers / kDotSet;  // 4 row groups
+constexpr int kDotStageRows = 16;                  // rows of a stage
+constexpr int kDotStageBytes = kDotStageRows * kRowF4 * 16;   // 8 KB
+constexpr int kDotStages = kBlockRows / kDotStageRows;        // 8 a block
+constexpr int kDotRing = 2 * kDotStages;           // two blocks in flight
+constexpr int kDotColsumOff = kDotRing * kDotStageBytes;
+constexpr int kDotColsumBytes = kDotGroups * kTile * 4;  // groups' sums
+constexpr int kDotBarOff = kDotColsumOff + 2 * kDotColsumBytes;
+constexpr int kDotSmem = kDotBarOff + 2 * kDotRing * 8;
+
 // a * b + c: one fused instruction, or a multiply and an add rounded
 // separately (the library is built with -fmad=false, so the compiler never
 // fuses them itself). Addition commutes, so chains of mad() round exactly
@@ -112,74 +213,162 @@ __device__ __forceinline__ float mad(float a, float b, float c) {
   return kFma ? __fmaf_rn(a, b, c) : a * b + c;
 }
 
+// One pair: the row's accumulator after this ref. The FMA instance gets
+// the origin negated (o holds -o) and starts tt's chain from f.
 template <bool kFma>
-__global__ void __launch_bounds__(kDotThreads) dots_fp32_kernel(
-    const float* __restrict__ xt, const float4* __restrict__ g,
+__device__ __forceinline__ float linear_forms(
+    float acc, float ox, float oy, float oz, float dx, float dy, float dz,
+    float mx, float my, float mz, const float4 q0, const float4 q1,
+    const float4 q2, const float4 q3) {
+  // det = d.n, tt = f - o.n, uu = m.b + d.c, vv = m.d' + d.e
+  const float det = mad<kFma>(dz, q0.z, mad<kFma>(dy, q0.y, dx * q0.x));
+  const float tt =
+      kFma ? mad<true>(oz, q0.z, mad<true>(oy, q0.y, mad<true>(ox, q0.x,
+                                                                 q3.w)))
+           : q3.w - mad<false>(oz, q0.z, mad<false>(oy, q0.y, ox * q0.x));
+  float uu = mad<kFma>(my, q1.x, mx * q0.w);
+  uu = mad<kFma>(mz, q1.y, uu);
+  uu = mad<kFma>(dx, q1.z, uu);
+  uu = mad<kFma>(dy, q1.w, uu);
+  uu = mad<kFma>(dz, q2.x, uu);
+  float vv = mad<kFma>(my, q2.z, mx * q2.y);
+  vv = mad<kFma>(mz, q2.w, vv);
+  vv = mad<kFma>(dx, q3.x, vv);
+  vv = mad<kFma>(dy, q3.y, vv);
+  vv = mad<kFma>(dz, q3.z, vv);
+  return acc + det + tt + uu + vv;
+}
+
+static_assert(kDotStageRows % kDotGroups == 0, "a stage splits evenly");
+
+template <bool kFma>
+__global__ void __launch_bounds__(kDotThreads, 1) dots_fp32_kernel(
+    const float* __restrict__ xt, const float* __restrict__ g,
     float* __restrict__ out, float* __restrict__ csum, int n_blocks) {
-  __shared__ float4 piece[kDotPieceF4];
-  const int b = blockIdx.x;
-  const bool last = b == n_blocks - 1;
-  float ox[2], oy[2], oz[2], dx[2], dy[2], dz[2], mx[2], my[2], mz[2];
-  float cs[2];
-#pragma unroll
-  for (int k = 0; k < 2; ++k) {
-    const int c = threadIdx.x + k * kDotThreads;
-    ox[k] = xt[1 * kTile + c];
-    oy[k] = xt[2 * kTile + c];
-    oz[k] = xt[3 * kTile + c];
-    dx[k] = xt[4 * kTile + c];
-    dy[k] = xt[5 * kTile + c];
-    dz[k] = xt[6 * kTile + c];
-    mx[k] = xt[7 * kTile + c];
-    my[k] = xt[8 * kTile + c];
-    mz[k] = xt[9 * kTile + c];
-    cs[k] = 0.0f;
+  extern __shared__ __align__(1024) uint8_t sm[];
+  const uint32_t base = smem(sm);
+  const uint32_t full = base + kDotBarOff;      // kDotRing barriers
+  const uint32_t empty = full + kDotRing * 8;   // kDotRing barriers
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    for (int s = 0; s < kDotRing; ++s) {
+      mbar_init_count(full + 8 * s, 1);
+      mbar_init_count(empty + 8 * s, kDotConsumers / 32);  // every warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  const float4* rows = g + (size_t)b * kBlockRows * kRowF4;
-  for (int p = 0; p < kBlockRows / kDotPieceRows; ++p) {
-    __syncthreads();  // the previous piece has been consumed
-    for (int i = threadIdx.x; i < kDotPieceF4; i += kDotThreads)
-      piece[i] = rows[p * kDotPieceF4 + i];
-    __syncthreads();
-    for (int row = 0; row < kDotPieceRows; ++row) {
-      const float4* rp = piece + row * kRowF4;
-      float acc[2] = {0.0f, 0.0f};
-#pragma unroll
-      for (int s = 0; s < kRefsPerRow; ++s) {
-        const float4* q = rp + s * kRefF4;
-        const float4 q0 = q[0], q1 = q[1], q2 = q[2], q3 = q[3];
-#pragma unroll
-        for (int k = 0; k < 2; ++k) {
-          // det = d.n, tt = f - o.n, uu = m.b + d.c, vv = m.d' + d.e
-          const float det = mad<kFma>(
-              dz[k], q0.z, mad<kFma>(dy[k], q0.y, dx[k] * q0.x));
-          const float tt = q3.w - mad<kFma>(
-              oz[k], q0.z, mad<kFma>(oy[k], q0.y, ox[k] * q0.x));
-          float uu = mad<kFma>(my[k], q1.x, mx[k] * q0.w);
-          uu = mad<kFma>(mz[k], q1.y, uu);
-          uu = mad<kFma>(dx[k], q1.z, uu);
-          uu = mad<kFma>(dy[k], q1.w, uu);
-          uu = mad<kFma>(dz[k], q2.x, uu);
-          float vv = mad<kFma>(my[k], q2.z, mx[k] * q2.y);
-          vv = mad<kFma>(mz[k], q2.w, vv);
-          vv = mad<kFma>(dx[k], q3.x, vv);
-          vv = mad<kFma>(dy[k], q3.y, vv);
-          vv = mad<kFma>(dz[k], q3.z, vv);
-          acc[k] = acc[k] + det + tt + uu + vv;
+  __syncthreads();
+
+  if (tid >= kDotConsumers) {
+    // Producer: one thread streams the CTA's blocks, stage by stage.
+    if (tid == kDotConsumers) {
+      int it = 0;  // stages issued
+      for (int b = blockIdx.x; b < n_blocks; b += gridDim.x) {
+        const char* src = reinterpret_cast<const char*>(g)
+                          + (size_t)b * kDotStages * kDotStageBytes;
+        for (int p = 0; p < kDotStages; ++p, ++it) {
+          const int s = it % kDotRing;
+          mbar_wait_bounded(empty + 8 * s, ((it / kDotRing) & 1) ^ 1);
+          bulk_copy(base + s * kDotStageBytes, src + p * kDotStageBytes,
+                    kDotStageBytes, full + 8 * s);
         }
       }
+    }
+    __syncwarp();
+    return;
+  }
+
+  // Consumers: thread tid takes rays c + kDotSet k (k < kDotRays) of rows
+  // grp + kDotGroups j of the block.
+  const int grp = tid / kDotSet;
+  const int c = tid % kDotSet;
+  float ox[kDotRays], oy[kDotRays], oz[kDotRays], dx[kDotRays],
+      dy[kDotRays], dz[kDotRays], mx[kDotRays], my[kDotRays], mz[kDotRays];
 #pragma unroll
-      for (int k = 0; k < 2; ++k) {
-        cs[k] = cs[k] + acc[k];
-        if (last)
-          out[(p * kDotPieceRows + row) * kTile + threadIdx.x
-              + k * kDotThreads] = acc[k];
+  for (int k = 0; k < kDotRays; ++k) {
+    const int r = c + kDotSet * k;
+    ox[k] = kFma ? -xt[1 * kTile + r] : xt[1 * kTile + r];
+    oy[k] = kFma ? -xt[2 * kTile + r] : xt[2 * kTile + r];
+    oz[k] = kFma ? -xt[3 * kTile + r] : xt[3 * kTile + r];
+    dx[k] = xt[4 * kTile + r];
+    dy[k] = xt[5 * kTile + r];
+    dz[k] = xt[6 * kTile + r];
+    mx[k] = xt[7 * kTile + r];
+    my[k] = xt[8 * kTile + r];
+    mz[k] = xt[9 * kTile + r];
+  }
+  int it = 0;  // stages consumed
+  int n = 0;   // blocks done
+  for (int b = blockIdx.x; b < n_blocks; b += gridDim.x, ++n) {
+    const bool last = b == n_blocks - 1;
+    float cs[kDotRays];
+#pragma unroll
+    for (int k = 0; k < kDotRays; ++k) cs[k] = 0.0f;
+    for (int p = 0; p < kDotStages; ++p, ++it) {
+      const int s = it % kDotRing;
+      mbar_wait_bounded(full + 8 * s, (it / kDotRing) & 1);
+      const float4* stage =
+          reinterpret_cast<const float4*>(sm + s * kDotStageBytes);
+#pragma unroll 1
+      for (int row = grp; row < kDotStageRows; row += kDotGroups) {
+        const float4* rp = stage + row * kRowF4;
+        float acc[kDotRays];
+#pragma unroll
+        for (int k = 0; k < kDotRays; ++k) acc[k] = 0.0f;
+#pragma unroll
+        for (int j = 0; j < kRefsPerRow; ++j) {
+          const float4* q = rp + j * kRefF4;
+          const float4 q0 = q[0], q1 = q[1], q2 = q[2], q3 = q[3];
+#pragma unroll
+          for (int k = 0; k < kDotRays; ++k)
+            acc[k] = linear_forms<kFma>(acc[k], ox[k], oy[k], oz[k], dx[k],
+                                        dy[k], dz[k], mx[k], my[k], mz[k],
+                                        q0, q1, q2, q3);
+        }
+#pragma unroll
+        for (int k = 0; k < kDotRays; ++k) cs[k] = cs[k] + acc[k];
+        if (last) {
+          float* o = out + (size_t)(p * kDotStageRows + row) * kTile + c;
+#pragma unroll
+          for (int k = 0; k < kDotRays; ++k) o[kDotSet * k] = acc[k];
+        }
       }
+      // Free the stage: one arrive a warp.
+      __syncwarp();
+      if ((tid & 31) == 0) mbar_arrive(empty + 8 * s);
+    }
+    // The groups' column sums, added in group order (buffers alternate per
+    // block, so this barrier also orders the reads of two blocks ago
+    // before the writes).
+    float* cb = reinterpret_cast<float*>(sm + kDotColsumOff
+                                         + (n & 1) * kDotColsumBytes);
+#pragma unroll
+    for (int k = 0; k < kDotRays; ++k)
+      cb[grp * kTile + c + kDotSet * k] = cs[k];
+    asm volatile("bar.sync 1, %0;\n" ::"n"(kDotConsumers) : "memory");
+#pragma unroll
+    for (int r = tid; r < kTile; r += kDotConsumers) {
+      float sum = cb[r];
+#pragma unroll
+      for (int w = 1; w < kDotGroups; ++w) sum = sum + cb[w * kTile + r];
+      csum[(size_t)b * kTile + r] = sum;
     }
   }
-#pragma unroll
-  for (int k = 0; k < 2; ++k)
-    csum[(size_t)b * kTile + threadIdx.x + k * kDotThreads] = cs[k];
+}
+
+// One launch of a K5 instance: a persistent grid of as many CTAs as fit
+// on the card at once (at most one per block).
+template <bool kFma>
+cudaError_t launch_dots_fp32(const float* xt, const float* g, float* out,
+                             float* csum, int n_blocks, cudaStream_t s) {
+  static int max_ctas = 0;
+  auto* kernel = dots_fp32_kernel<kFma>;
+  const cudaError_t e =
+      resident_ctas(kernel, kDotThreads, kDotSmem, max_ctas);
+  if (e != cudaSuccess) return e;
+  const int ctas = n_blocks < max_ctas ? n_blocks : max_ctas;
+  kernel<<<ctas, kDotThreads, kDotSmem, s>>>(xt, g, out, csum, n_blocks);
+  return cudaGetLastError();
 }
 
 // ---------------------------------------------------------------- K6, K7
@@ -203,9 +392,6 @@ constexpr int kColsumOff = kPhiOff + 2 * kPhiBytes;
 constexpr int kBarOff = kColsumOff + 2 * kColsumBytes;
 constexpr int kBf16Smem = kBarOff + 2 * kStages * 8;
 constexpr int kPairs = 2;           // CTAs a stream block is split over
-// A barrier wait that outlasts this traps, so a fault in the pipeline
-// ends the launch with an error instead of hanging the card.
-constexpr unsigned long long kWaitLimitNs = 4000000000ull;
 // The ring's stages divide a block's groups, so group q of every block
 // takes slot q % kStages; only the phase parity depends on the block.
 static_assert(kGroups % kStages == 0, "a block fills whole rounds");
@@ -244,39 +430,6 @@ __device__ __forceinline__ void to_bf16(float x0, float x1, uint32_t& hi,
 // every product C[., p] . phi[p, .] is made once, as before.
 __host__ __device__ constexpr int phys_k(int k) {
   return 4 * ((k & 7) >> 1) + 2 * (k >> 3) + (k & 1);
-}
-
-__device__ __forceinline__ void mbar_init_count(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ bool mbar_try(uint32_t bar, uint32_t parity) {
-  uint32_t ok;
-  asm volatile(
-      "{\n\t.reg .pred p;\n\t"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
-      "selp.u32 %0, 1, 0, p;\n}\n"
-      : "=r"(ok)
-      : "r"(bar), "r"(parity)
-      : "memory");
-  return ok != 0;
-}
-
-__device__ __forceinline__ unsigned long long global_ns() {
-  unsigned long long t;
-  asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(t));
-  return t;
-}
-
-// Wait for the phase of parity `parity` of the barrier at `bar`.
-__device__ __forceinline__ void mbar_wait_bounded(uint32_t bar,
-                                                  uint32_t parity) {
-  if (mbar_try(bar, parity)) return;
-  const unsigned long long t0 = global_ns();
-  while (!mbar_try(bar, parity))
-    if (global_ns() - t0 > kWaitLimitNs) __trap();
 }
 
 // wgmma's shared-memory descriptor of a K-major B tile without swizzle:
@@ -413,16 +566,8 @@ __global__ void __launch_bounds__(kBf16Threads, 1) dots_bf16_kernel(
         for (int q = 0; q < kGroups; ++q) {
           const int s = q % kStages;
           mbar_wait_bounded(empty + 8 * s, ring_parity(k, q) ^ 1);
-          asm volatile(
-              "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
-                  "r"(full + 8 * s),
-              "r"(kStageBytes)
-              : "memory");
-          asm volatile(
-              "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx"
-              "::bytes [%0], [%1], %2, [%3];\n" ::"r"(base + s * kStageBytes),
-              "l"(src + q * kStageBytes), "r"(kStageBytes), "r"(full + 8 * s)
-              : "memory");
+          bulk_copy(base + s * kStageBytes, src + q * kStageBytes,
+                    kStageBytes, full + 8 * s);
         }
       }
     }
@@ -462,10 +607,7 @@ __global__ void __launch_bounds__(kBf16Threads, 1) dots_bf16_kernel(
       to_bf16<kSplit>(x1.z, x1.w, h[3], l[3]);
       // Free the stage: one arrive for the warp.
       __syncwarp();
-      if (lane == 0)
-        asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
-                         empty + 8 * s)
-                     : "memory");
+      if (lane == 0) mbar_arrive(empty + 8 * s);
       wgmma_fence();
       wgmma_bf16(acc, h, desc_hi, q > 0);
       if (kSplit) {
@@ -540,23 +682,13 @@ __global__ void __launch_bounds__(kBf16Threads, 1) dots_bf16_kernel(
 template <bool kSplit>
 cudaError_t launch_dots_bf16(const float* phi, const float* c, float* out,
                              float* csum, int n_blocks, cudaStream_t s) {
-  static int max_pairs = 0;
+  static int max_ctas = 0;
   auto* kernel = dots_bf16_kernel<kSplit>;
-  if (max_pairs == 0) {
-    cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kBf16Smem);
-    if (e != cudaSuccess) return e;
-    int dev = 0, sms = 0, per_sm = 0;
-    e = cudaGetDevice(&dev);
-    if (e == cudaSuccess)
-      e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (e == cudaSuccess)
-      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &per_sm, kernel, kBf16Threads, kBf16Smem);
-    if (e != cudaSuccess) return e;
-    if (per_sm * sms < kPairs) return cudaErrorInvalidConfiguration;
-    max_pairs = per_sm * sms / kPairs;
-  }
+  const cudaError_t e =
+      resident_ctas(kernel, kBf16Threads, kBf16Smem, max_ctas);
+  if (e != cudaSuccess) return e;
+  const int max_pairs = max_ctas / kPairs;
+  if (max_pairs < 1) return cudaErrorInvalidConfiguration;
   const int pairs = n_blocks < max_pairs ? n_blocks : max_pairs;
   dots_bf16_kernel<kSplit><<<kPairs * pairs, kBf16Threads, kBf16Smem, s>>>(
       phi, c, out, csum, n_blocks);
@@ -590,16 +722,12 @@ extern "C" int hagrid_det_sweep(const float* xt, int n_cols,
 extern "C" int hagrid_dots_fp32(const float* xt, const float* g, float* out,
                                 float* csum, int n_blocks, int fma,
                                 void* stream) {
-  if (n_blocks <= 0) return (int)cudaErrorInvalidValue;
-  const float4* g4 = reinterpret_cast<const float4*>(g);
+  if (n_blocks <= 0 || n_blocks > (1 << 28))
+    return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
-  if (fma)
-    dots_fp32_kernel<true><<<n_blocks, kDotThreads, 0, s>>>(xt, g4, out,
-                                                            csum, n_blocks);
-  else
-    dots_fp32_kernel<false><<<n_blocks, kDotThreads, 0, s>>>(xt, g4, out,
-                                                             csum, n_blocks);
-  return (int)cudaGetLastError();
+  return (int)(fma
+      ? launch_dots_fp32<true>(xt, g, out, csum, n_blocks, s)
+      : launch_dots_fp32<false>(xt, g, out, csum, n_blocks, s));
 }
 
 // K6 (split == 0) and K7 (split != 0): phi f32[16, 512],

@@ -11,6 +11,8 @@ one bf16 mma step. Three kernels over the same work (B = 2048 blocks x
           (`dots_fp32`, K5);
   vpu_fma: the same with explicit fused multiply-adds
           (`dots_fp32(fma=True)`): what contraction would buy;
+  vpu_lib: the same function as one FP32 library product, torch.mm(g,
+          phi) with TF32 off (`dots_fp32_library`), the yardstick;
   mxu1  : one bf16 tensor-core product (`dots_bf16`, K6);
   mxu3  : bf16x3, hi/lo split of both operands, three products
           (`dots_bf16(split=True)`, K7).
@@ -32,7 +34,8 @@ import torch
 
 from ..device import device_name, resolve
 from ..ops.micro_kernels import (BLOCK_C_ROWS, BLOCK_ROWS, DOT_DEPTH,
-                                 bf16_split, dots_bf16, dots_fp32)
+                                 bf16_split, dots_bf16, dots_fp32,
+                                 dots_fp32_library)
 from ..utils.profiling import timed
 
 
@@ -68,12 +71,13 @@ def bf16_errors(phi, c) -> dict:
 def run(device=None, blocks=2048, tile=512, seed=0, warmup=1, iters=3,
         chain=4) -> dict:
     """The record: sizes, the device the times were taken on, vpu /
-    vpu_fma / mxu1 / mxu3 as ms and ns per block, and the two relative
-    errors."""
+    vpu_fma / vpu_lib / mxu1 / mxu3 as ms and ns per block, and the two
+    relative errors."""
     dev = resolve(device)
     xt, g, phi, c = inputs(blocks, tile, seed, dev)
     runs = {"vpu": lambda: dots_fp32(xt, g),
             "vpu_fma": lambda: dots_fp32(xt, g, fma=True),
+            "vpu_lib": dots_fp32_library(xt, g),
             "mxu1": lambda: dots_bf16(phi, c),
             "mxu3": lambda: dots_bf16(phi, c, split=True)}
     rec = dict(device=device_name(dev), blocks=blocks, tile=tile)
@@ -88,7 +92,7 @@ def run(device=None, blocks=2048, tile=512, seed=0, warmup=1, iters=3,
 def report(rec: dict) -> str:
     lines = [f"{name:<7} dots: {rec[name + '_ms']:8.3f} ms total = "
              f"{rec[name + '_ns_per_block']:7.0f} ns/block"
-             for name in ("vpu", "vpu_fma", "mxu1", "mxu3")]
+             for name in ("vpu", "vpu_fma", "vpu_lib", "mxu1", "mxu3")]
     lines += [f"rel err bf16x1: {rec['rel_err_bf16x1']:.2e}",
               f"rel err bf16x3: {rec['rel_err_bf16x3']:.2e}",
               f"({rec['blocks']} blocks x {rec['tile']} rays, on "

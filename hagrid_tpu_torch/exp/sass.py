@@ -5,19 +5,23 @@ kernel library (csrc/*.cu), per kernel.
 
 Runs `cuobjdump -sass` on the library that `ops/_build.py` builds (and
 builds it first if needed), and prints for each sweep instance and each
-bf16 dots instance (K6/K7; `--all`: every kernel) its instruction count
+dots instance (K5, K6/K7; `--all`: every kernel) its instruction count
 and the opcodes that say where a per-pair cost comes from: the
 reciprocal and its slow path (MUFU.RCP, CALL), float <-> int conversions
 (F2I, I2F), spills (LDL, STL), barriers (BAR, SYNCS: mbarrier waits),
 bulk copies (UBLKCP), shared loads (LDS), the FP32 instructions, and for
 K6/K7 the warpgroup products (HGMMA, WARPGROUP: their fences and waits),
-the bf16 conversions (F2FP) and shuffles (SHFL). PATH receives the whole
-disassembly. Needs the CUDA toolkit (cuobjdump), not a card.
+the bf16 conversions (F2FP) and shuffles (SHFL). `inner_loop` counts
+the same opcodes in a kernel's innermost loop that holds its FP32 work
+(K5: one row of 6 refs x 8 rays a thread), so that a count divided by the
+loop's pairs is a cost per pair. PATH receives the whole disassembly.
+Needs the CUDA toolkit (cuobjdump), not a card.
 """
 
 from __future__ import annotations
 
 import argparse
+import bisect
 import collections
 import os
 import re
@@ -32,8 +36,11 @@ WATCH = ("MUFU.RCP", "CALL", "RET", "F2I", "I2F", "LDL", "STL", "BAR",
          "FSETP", "FSEL", "FMNMX", "LOP3", "BRA", "ATOMG", "RED", "HGMMA",
          "WARPGROUP", "F2FP", "SHFL")
 # Kernels the census covers without --all.
-SELECT = ("sweep", "dots_bf16")
-_INSN = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)")
+SELECT = ("sweep", "dots_fp32", "dots_bf16")
+_INSN = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?"
+                   r"([A-Z][A-Z0-9_.]*)([^;]*)")
+_TARGET = re.compile(r"\b0x([0-9a-f]+)\b")
+_FP32 = ("FFMA", "FMUL", "FADD")
 
 
 def _tool(name):
@@ -62,22 +69,57 @@ def demangle(names):
         {n: n for n in names}
 
 
-def census(sass: str) -> dict:
-    """{kernel name: Counter of opcodes (full) and '_total'}."""
+def instructions(sass: str) -> dict:
+    """{kernel name: [(address, opcode, operands)]}, NOPs left out."""
     per = {}
     cur = None
     for line in sass.splitlines():
         m = re.search(r"Function : (\S+)", line)
         if m:
-            cur = per.setdefault(m.group(1), collections.Counter())
+            cur = per.setdefault(m.group(1), [])
             continue
         if cur is None:
             continue
         m = _INSN.search(line)
-        if m and m.group(1) != "NOP":
-            cur[m.group(1)] += 1
-            cur["_total"] += 1
+        if m and m.group(2) != "NOP":
+            cur.append((int(m.group(1), 16), m.group(2), m.group(3)))
     return per
+
+
+def _count(insns) -> collections.Counter:
+    c = collections.Counter(op for _, op, _ in insns)
+    c["_total"] = len(insns)
+    return c
+
+
+def census(sass: str) -> dict:
+    """{kernel name: Counter of opcodes (full) and '_total'}."""
+    return {k: _count(v) for k, v in instructions(sass).items()}
+
+
+def inner_loop(insns):
+    """The innermost loop of one kernel that holds its FP32 work: the
+    shortest span from a backward branch's target to the branch that
+    holds at least half of the kernel's FFMA, FMUL and FADD. Returns
+    (Counter of its opcodes, as census, or None when there is none, its
+    first and last address)."""
+    addrs = [a for a, _, _ in insns]
+    fp32 = [0]   # prefix counts
+    for _, op, _ in insns:
+        fp32.append(fp32[-1] + (op.split(".")[0] in _FP32))
+    best = None
+    for i, (addr, op, args) in enumerate(insns):
+        m = _TARGET.search(args)
+        if not (op.startswith("BRA") and m) or int(m.group(1), 16) >= addr:
+            continue
+        j = bisect.bisect_left(addrs, int(m.group(1), 16))
+        if fp32[-1] and 2 * (fp32[i + 1] - fp32[j]) >= fp32[-1] and (
+                best is None or i - j < best[1] - best[0]):
+            best = (j, i)
+    if best is None:
+        return None, None, None
+    j, i = best
+    return _count(insns[j:i + 1]), addrs[j], addrs[i]
 
 
 def summary(counts: collections.Counter) -> dict:
@@ -91,14 +133,20 @@ def summary(counts: collections.Counter) -> dict:
 
 
 def run(lib_path=None, out=None, every=False) -> dict:
+    """{kernel name: (summary, summary of its inner_loop or None)}."""
     sass = disassemble(lib_path)
     if out:
         with open(out, "w") as f:
             f.write(sass)
-    per = census(sass)
+    per = instructions(sass)
     names = demangle(list(per))
-    return {names[k]: summary(c) for k, c in per.items()
-            if every or any(w in names[k] for w in SELECT)}
+    rec = {}
+    for k, insns in per.items():
+        if every or any(w in names[k] for w in SELECT):
+            body = inner_loop(insns)[0]
+            rec[names[k]] = (summary(_count(insns)),
+                             None if body is None else summary(body))
+    return rec
 
 
 def main(argv=None) -> int:
@@ -106,8 +154,11 @@ def main(argv=None) -> int:
     ap.add_argument("--out", help="write the whole disassembly here")
     ap.add_argument("--all", action="store_true", help="every kernel")
     a = ap.parse_args(argv)
-    for name, s in run(out=a.out, every=a.all).items():
+    for name, (s, body) in run(out=a.out, every=a.all).items():
         print(f"{name}: " + ", ".join(f"{k} {v}" for k, v in s.items()))
+        if body:
+            print("  innermost FP32 loop: "
+                  + ", ".join(f"{k} {v}" for k, v in body.items()))
     return 0
 
 

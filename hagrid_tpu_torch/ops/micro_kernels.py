@@ -12,10 +12,14 @@ exp/r3_kernel_mt20.py (make_det_kernel) and exp/r4_mxu_micro.py
   compared as int32, as in the production kernel).
 - `dots_fp32` (K5): xt f32[16, T], g f32[B*128, 128] (6 refs x 20
   coefficients and 8 pad lanes a row). Per block, row and ray: det,
-  f - o.n, m.b + d.c, m.d' + d.e, all four summed over the row's 6 refs.
-  fma=True launches the instance whose multiply-adds are explicit FMAs
-  (what contraction would buy; it rounds once where the plain version
-  rounds twice, so it agrees to about 1e-5 of the largest output).
+  f - o.n, m.b + d.c, m.d' + d.e, all four summed over the row's 6 refs;
+  a block's column sums add its rows in DOT_ROW_GROUPS groups, as the
+  kernel does. fma=True launches the instance whose four forms are
+  chains of explicit FMAs (what contraction would buy; it rounds once
+  where the plain version rounds twice). That instance, and
+  `dots_fp32_library` (the same function as one FP32 torch.mm, a
+  yardstick), are held to an element bound derived from their rounding
+  chains: `dots_fp32_exact`, `bound_ratio`.
 - `dots_bf16` (K6, and K7 with split=True): phi f32[16, T],
   c f32[B*3072, 16]. Per block, C_blk . phi with both operands rounded to
   bf16 and f32 accumulation, the 24 groups of 128 rows summed. split=True
@@ -31,9 +35,9 @@ observable. K5-K7 return (out, csum).
 Each wrapper runs its CUDA kernel for CUDA tensors (T = 512 there) and its
 plain version for CPU tensors, and counts kernel launches in `launches`.
 K4 and K5 are built without FMA contraction and equal their plain versions
-bit for bit; K6 and K7 accumulate on the tensor cores in another order
-than a matmul followed by adds, so they agree to about 1e-4 of the largest
-output.
+bit for bit (K5's FMA instance apart); K6 and K7 accumulate on the tensor
+cores in another order than a matmul followed by adds, so they agree to
+about 1e-4 of the largest output.
 """
 
 from __future__ import annotations
@@ -50,6 +54,7 @@ BLOCK_ROWS = 128       # group rows of g per stream block
 BLOCK_C_ROWS = 3072    # rows of c per stream block: 4 forms x 768 refs
 DOT_DEPTH = 16         # depth of the bf16 products
 CUDA_TILE = 512        # rays the K5-K7 kernels are built for
+DOT_ROW_GROUPS = 4     # K5's groups of rows, summed apart into csum
 _REFS_PER_ROW = 6
 _COEFS = 20
 _ELEMS_PER_CHUNK = 1 << 22   # elements a plain version holds per tensor
@@ -175,8 +180,10 @@ def _empty_dots(n_blocks, x):
 
 def dots_fp32_plain(xt, g):
     """Plain PyTorch version of K5, op for op in the kernel's order: the
-    row's accumulator takes det, tt, uu, vv of each ref in turn, and the
-    column sums add the 128 rows in order."""
+    row's accumulator takes det, tt, uu, vv of each ref in turn; a
+    block's column sums add the rows of each of the DOT_ROW_GROUPS groups
+    (rows w, w + 4, ..., w + 124 for group w) in order, then the groups'
+    sums in group order."""
     n_blocks = _check_dots(xt, g, BLOCK_ROWS, 128, "dots_fp32")
     tile = xt.shape[1]
     ox, oy, oz, dx, dy, dz, mx, my, mz = xt[1:10].reshape(9, 1, 1, tile)
@@ -196,17 +203,131 @@ def dots_fp32_plain(xt, g):
             uu = mx * b0 + my * b1 + mz * b2 + dx * c0 + dy * c1 + dz * c2
             vv = mx * d0 + my * d1 + mz * d2 + dx * e0 + dy * e1 + dz * e2
             acc = acc + det + tt + uu + vv
-        cs = torch.zeros((gg.shape[0], tile), dtype=torch.float32,
-                         device=xt.device)
-        for row in range(BLOCK_ROWS):
-            cs = cs + acc[:, row]
+        by_group = acc.reshape(-1, BLOCK_ROWS // DOT_ROW_GROUPS,
+                               DOT_ROW_GROUPS, tile)
+        part = torch.zeros_like(by_group[:, 0])
+        for j in range(BLOCK_ROWS // DOT_ROW_GROUPS):
+            part = part + by_group[:, j]
+        cs = part[:, 0]
+        for w in range(1, DOT_ROW_GROUPS):
+            cs = cs + part[:, w]
         csums.append(cs)
     return acc[-1], torch.cat(csums)
 
 
+def _dots_phi(dn, m, d):
+    """The (128, T) right factor that makes K5's function one product
+    g . phi: for ref slot s, rows 20s + 0..2 hold dn (d - o for the value,
+    |d| + |o| for the error scale), + 3..5 m, + 6..8 d, + 9..11 m,
+    + 12..14 d and + 15 ones; every other row is zero."""
+    tile = dn.shape[1]
+    ref = torch.cat([dn, m, d, m, d, dn.new_ones((1, tile)),
+                     dn.new_zeros((_COEFS - 16, tile))])
+    pad = dn.new_zeros((128 - _REFS_PER_ROW * _COEFS, tile))
+    return torch.cat([ref] * _REFS_PER_ROW + [pad])
+
+
+def dots_fp32_library(xt, g):
+    """One library product that computes K5's function, the yardstick
+    chip_smoke.py times beside the kernel; the port never calls it. Lays
+    out phi (`_dots_phi` with d - o rounded to f32) and returns `call`, a
+    function of no arguments that runs torch.mm(g, phi) in true FP32 (TF32
+    off for the call, the setting restored after) and returns every
+    block's (128, T) sums as f32[B, 128, T]. g is used as it is, no copy."""
+    n_blocks = _check_dots(xt, g, BLOCK_ROWS, 128, "dots_fp32")
+    o, d, m = xt[1:4], xt[4:7], xt[7:10]
+    phi = _dots_phi(d - o, m, d)
+    shape = (n_blocks, BLOCK_ROWS, xt.shape[1])
+
+    def call():
+        tf32 = torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = False
+        try:
+            return torch.mm(g, phi).reshape(shape)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+    return call
+
+
+# The FP32 unit roundoff, and the f64 reference's own error (below
+# 2^-45 of the scale for the few hundred roundings of one element).
+ROUND_OFF = 2.0 ** -24
+_F64_MARGIN = 2.0 ** -40
+# Roundings on the longest chain any term of an element passes through,
+# for (out, csum); dots_fp32_exact derives them.
+KERNEL_CHAINS = (28, 63)
+LIBRARY_CHAINS = (129, 256)
+
+
+def dots_fp32_exact(xt, g):
+    """K5's function in f64 and the scale of its rounding error:
+    (out, csum, out_scale, csum_scale), all f64, out and out_scale of the
+    last block. The scale of an element is the sum of |term| over its
+    terms: per ref |d_i n_i| and |o_i n_i| (i = x, y, z), |f|, |m_i b_i|,
+    |d_i c_i|, |m_i d'_i| and |d_i e_i|, 19 a ref, 114 a row; csum's are
+    its 128 rows'.
+
+    The rule (`bound_ratio`): |got - exact| <= gamma_k * scale, with
+    gamma_k = k u / (1 - k u), u = 2^-24, where k is the number of
+    roundings on the longest chain that any term passes through (each
+    rounding multiplies what it touches by 1 + delta, |delta| <= u; an
+    FMA rounds its product and sum once). Then got = sum of t (1 +
+    theta), |theta| <= gamma_k, whatever the order (Higham, Accuracy
+    and Stability of Numerical Algorithms, 2nd ed., lemma 3.1).
+
+    - K5, either instance (KERNEL_CHAINS): uu's first product is rounded
+      once, then five multiply-adds (6); it enters the accumulator with
+      + uu and + vv of its ref and four adds for each of the 5 later
+      refs (22): out k = 28 (det's terms 27, tt's 27 or 26 with FMAs).
+      csum adds the row into its group's sum, 32 rows (32, the first
+      exact), then the four groups' sums in order (3): k = 63.
+    - The library product (LIBRARY_CHAINS): torch.mm sums 128 products
+      in an order of its own, any order of 128 terms rounds a term at
+      most 128 times, and d - o is rounded once in phi: k = 129 (the
+      scale counts |d n| + |o n| >= |(d - o) n|). The column sums of its
+      128 rows, in any order: k = 129 + 127 = 256.
+
+    This function's own f64 error stays below 2^-45 of the scale; the
+    bound adds 2^-40 of it."""
+    n_blocks = _check_dots(xt, g, BLOCK_ROWS, 128, "dots_fp32")
+    tile = xt.shape[1]
+    x = xt.double()
+    o, d, m = x[1:4], x[4:7], x[7:10]
+    phi = _dots_phi(d - o, m, d)
+    phi_abs = _dots_phi(d.abs() + o.abs(), m.abs(), d.abs())
+    rows = g.reshape(n_blocks, BLOCK_ROWS, 128)
+    chunk = max(1, _ELEMS_PER_CHUNK // (BLOCK_ROWS * tile))
+    csums, scales = [], []
+    for s in range(0, n_blocks, chunk):
+        gg = rows[s:s + chunk].double()
+        val, mag = gg @ phi, gg.abs() @ phi_abs
+        csums.append(val.sum(1))
+        scales.append(mag.sum(1))
+    return val[-1], torch.cat(csums), mag[-1], torch.cat(scales)
+
+
+def rounding_bound(scale, k):
+    """gamma_k * scale, plus the f64 reference's margin."""
+    return scale * (k * ROUND_OFF / (1 - k * ROUND_OFF) + _F64_MARGIN)
+
+
+def bound_ratio(got, exact, chains=KERNEL_CHAINS):
+    """The largest |got - exact| / rounding_bound over out and over csum:
+    (out's, csum's). got = (out, csum), exact = dots_fp32_exact(...); the
+    rule holds when both are <= 1."""
+    ratios = []
+    for x, ref, scale, k in zip(got, exact[:2], exact[2:], chains):
+        err = (x.double() - ref).abs()
+        bound = rounding_bound(scale, k)
+        ratios.append(float(torch.where(
+            err == 0, 0.0, err / bound).max()))
+    return tuple(ratios)
+
+
 def dots_fp32(xt, g, fma=False):
     """K5: (out f32[128, T] of the last block, csum f32[B, T]). fma picks
-    the CUDA instance with explicit FMAs; the plain version, which CPU
+    the CUDA instance with explicit FMAs (within the element bound of
+    KERNEL_CHAINS, see dots_fp32_exact); the plain version, which CPU
     tensors get, rounds every operation either way."""
     if xt.device.type == "cpu":
         return dots_fp32_plain(xt, g)

@@ -378,21 +378,92 @@ def test_det_sweep_matches_plain_on_card(cuda):
 @pytest.mark.gpu
 def test_dots_fp32_matches_plain_on_card(cuda):
     """K5 equals its plain version bit for bit: the last block's sums and
-    every block's column sums."""
+    every block's column sums. The FMA instance rounds once per
+    multiply-add: within 1e-5 of the largest output and within the
+    element bound of its rounding chains, not equal."""
     xt, g, _, _ = mxu_micro.inputs(blocks=3, seed=3, device=cuda)
-    before = mk.launches["dots_fp32"]
-    out, csum = mk.dots_fp32(xt, g)
-    torch.cuda.synchronize()
-    assert mk.launches["dots_fp32"] == before + 1
+    out, csum = _dots_fp32_on_card(xt, g, False)
     want, want_cs = mk.dots_fp32_plain(xt, g)
     assert torch.equal(out, want) and torch.equal(csum, want_cs)
-    # The FMA instance rounds once per multiply-add: close, not equal.
-    before = mk.launches["dots_fp32_fma"]
-    out_f, csum_f = mk.dots_fp32(xt, g, fma=True)
-    assert mk.launches["dots_fp32_fma"] == before + 1
+    out_f, csum_f = _dots_fp32_on_card(xt, g, True)
     assert (out_f - want).abs().max() <= 1e-5 * want.abs().max()
     assert (csum_f - want_cs).abs().max() <= 1e-5 * want_cs.abs().max()
+    r_out, r_cs = mk.bound_ratio((out_f, csum_f), mk.dots_fp32_exact(xt, g))
+    assert r_out <= 1 and r_cs <= 1
     assert not torch.equal(out_f, want)
+
+
+def _dots_fp32_on_card(xt, g, fma):
+    """K5 through the wrapper; checks that exactly one launch counted."""
+    key = "dots_fp32_fma" if fma else "dots_fp32"
+    before = mk.launches[key]
+    got = mk.dots_fp32(xt, g, fma=fma)
+    torch.cuda.synchronize()
+    assert mk.launches[key] == before + 1
+    return got
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fma", [False, True])
+@pytest.mark.parametrize("blocks", [1, 131, 133, 2049])
+def test_dots_fp32_persistent_schedule_on_card(cuda, blocks, fma):
+    """The persistent grid (one CTA per SM, 132 on an H100 SXM) at one
+    block, fewer blocks than CTAs, one more than a round, and more than
+    15 rounds: the plain instance equals its plain version bit for bit,
+    the FMA instance lies within the element bound."""
+    xt, g, _, _ = mxu_micro.inputs(blocks=blocks, seed=40 + blocks,
+                                   device=cuda)
+    got = _dots_fp32_on_card(xt, g, fma)
+    if fma:
+        r_out, r_cs = mk.bound_ratio(got, mk.dots_fp32_exact(xt, g))
+        assert r_out <= 1 and r_cs <= 1
+    else:
+        for a, b in zip(got, mk.dots_fp32_plain(xt, g)):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fma", [False, True])
+@pytest.mark.parametrize("where", ["last", "middle"])
+def test_dots_fp32_one_hot_on_card(cuda, where, fma):
+    """133 blocks, all zero but one, whose row r has a 1 at coefficient
+    r % 16 of ref slot r % 6: row r of that block's sums is one term of
+    the ray's linear forms (d_i - o_i, m_i, d_i or 1), exact in both
+    instances. out comes from block B - 1 only: it holds those rows when
+    the one-hot block is the last and zeros when it is another; csum is
+    zero on every other block."""
+    blocks = 133
+    xt, _, _, _ = mxu_micro.inputs(blocks=1, seed=50, device=cuda)
+    g = torch.zeros((blocks * mk.BLOCK_ROWS, 128), device=cuda)
+    hot = blocks - 1 if where == "last" else 70
+    rows = torch.arange(mk.BLOCK_ROWS, device=cuda)
+    g[hot * mk.BLOCK_ROWS + rows, 20 * (rows % 6) + rows % 16] = 1.0
+    out, csum = _dots_fp32_on_card(xt, g, fma)
+    o, d, m = xt[1:4], xt[4:7], xt[7:10]
+    per_coef = torch.cat([d - o, m, d, m, d, torch.ones_like(xt[:1])])
+    want = per_coef[rows % 16]
+    assert torch.equal(out, want if where == "last" else
+                       torch.zeros_like(want))
+    want_cs = mk.dots_fp32_plain(xt, g)[1]
+    assert torch.equal(csum, want_cs)
+    assert bool((want_cs[hot] != 0).any())
+    others = torch.arange(blocks, device=cuda) != hot
+    assert bool((csum[others] == 0).all())
+
+
+@pytest.mark.gpu
+def test_dots_fp32_library_on_card(cuda):
+    """The library product (torch.mm in FP32) lies within its element
+    bound and leaves the TF32 setting as it found it."""
+    xt, g, _, _ = mxu_micro.inputs(blocks=67, seed=5, device=cuda)
+    before = torch.backends.cuda.matmul.allow_tf32
+    sums = mk.dots_fp32_library(xt, g)()
+    torch.cuda.synchronize()
+    assert torch.backends.cuda.matmul.allow_tf32 == before
+    r_out, r_cs = mk.bound_ratio((sums[-1], sums.sum(1)),
+                                 mk.dots_fp32_exact(xt, g),
+                                 mk.LIBRARY_CHAINS)
+    assert r_out <= 1 and r_cs <= 1
 
 
 @pytest.mark.gpu

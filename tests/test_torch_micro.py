@@ -9,7 +9,9 @@ executed in a namespace with the names they use) and called through
 small shape.
 
 Tolerances: K4 and K5 atol 1e-5 on values of order 10 (XLA contracts
-a*b + c into FMAs, the port rounds every operation); K6 and K7
+a*b + c into FMAs, the port rounds every operation); K5's FMA instance
+and its library product are held to a bound derived from their rounding
+chains (micro_kernels.dots_fp32_exact); K6 and K7
 1e-4 x max|ref| (a dot followed by adds against one matmul and a sum, in
 another accumulation order).
 """
@@ -26,7 +28,7 @@ from jax.experimental import pallas as pl
 from jax.experimental.pallas import tpu as pltpu
 
 from hagrid_tpu.ops import sweep_trace as j_st
-from hagrid_tpu_torch.exp import kernel_mt20, mxu_micro
+from hagrid_tpu_torch.exp import kernel_mt20, mxu_micro, sass
 from hagrid_tpu_torch.ops import micro_kernels as mk
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
@@ -170,6 +172,104 @@ def test_dots_fp32_last_block_survives(n_blocks):
                                    rtol=0, atol=2e-4)
 
 
+def test_dots_fp32_plain_column_sum_order():
+    """One block: csum is the sum of the last block's rows (out) in K5's
+    order, bit for bit: rows w, w + 4, ..., w + 124 of each group w in
+    order, then the four groups' sums in group order."""
+    xt, g, _, _ = mxu_micro.inputs(blocks=1, tile=TILE, seed=12,
+                                   device="cpu")
+    out, csum = mk.dots_fp32_plain(xt, g)
+    rows = out.numpy()
+    parts = []
+    for w in range(mk.DOT_ROW_GROUPS):
+        part = np.zeros(TILE, np.float32)
+        for r in range(w, 128, mk.DOT_ROW_GROUPS):
+            part = part + rows[r]
+        parts.append(part)
+    want = parts[0]
+    for part in parts[1:]:
+        want = want + part
+    np.testing.assert_array_equal(csum[0].numpy(), want)
+
+
+def _fma_model(xt, g):
+    """K5's FMA instance in numpy (f64 arithmetic rounded to f32 after
+    every fused step, a double rounding the kernel does not make, and
+    within the same bound): per ref det, tt from f with the origin
+    negated, uu and vv as chains of multiply-adds, added into the row's
+    accumulator in order; csum in the kernel's group order."""
+    f32 = lambda a: np.asarray(a, np.float64).astype(np.float32)  # noqa
+    fma = lambda a, b, c: f32(a.astype(np.float64) * b + c)  # noqa: E731
+    x = xt.numpy()[:, None, :]
+    ox, oy, oz, dx, dy, dz, mx, my, mz = x[1:10]
+    outs, csums = [], []
+    for blk in g.numpy().reshape(-1, 128, 128):
+        acc = np.zeros((128, x.shape[2]), np.float32)
+        for s in range(6):
+            (n0, n1, n2, b0, b1, b2, c0, c1, c2, d0, d1, d2, e0, e1, e2,
+             f) = (blk[:, 20 * s + k, None] for k in range(16))
+            det = fma(dz, n2, fma(dy, n1, f32(dx * n0)))
+            tt = fma(-oz, n2, fma(-oy, n1, fma(-ox, n0, f)))
+            uu = f32(mx * b0)
+            for a, b in ((my, b1), (mz, b2), (dx, c0), (dy, c1), (dz, c2)):
+                uu = fma(a, b, uu)
+            vv = f32(mx * d0)
+            for a, b in ((my, d1), (mz, d2), (dx, e0), (dy, e1), (dz, e2)):
+                vv = fma(a, b, vv)
+            acc = acc + det + tt + uu + vv
+        parts = [np.zeros(x.shape[2], np.float32) for _ in range(4)]
+        for r in range(128):
+            parts[r % 4] = parts[r % 4] + acc[r]
+        outs.append(acc)
+        csums.append(((parts[0] + parts[1]) + parts[2]) + parts[3])
+    return torch.as_tensor(outs[-1]), torch.as_tensor(np.stack(csums))
+
+
+@pytest.mark.parametrize("n_blocks", [1, 2, 3])
+def test_dots_fp32_rounding_bound(n_blocks):
+    """The rule the FMA instance and the library are held to: the plain
+    version and a model of the FMA instance lie within gamma_28 (out) and
+    gamma_63 (csum) of the f64 value, scaled by the sum of |term|; one
+    more rounding of g to bf16 breaks it by orders of magnitude."""
+    xt, g, _, _ = mxu_micro.inputs(blocks=n_blocks, tile=TILE, seed=13,
+                                   device="cpu")
+    exact = mk.dots_fp32_exact(xt, g)
+    assert exact[0].dtype == torch.float64
+    assert exact[1].shape == exact[3].shape == (n_blocks, TILE)
+    # The scale of one element: 114 terms a row.
+    assert float(exact[2].min()) > 0
+    for got in (mk.dots_fp32_plain(xt, g), _fma_model(xt, g)):
+        r_out, r_cs = mk.bound_ratio(got, exact)
+        assert r_out <= 1 and r_cs <= 1
+    assert mk.bound_ratio(mk.dots_fp32_plain(xt, mk.bf16_round(g)),
+                          exact)[0] > 10
+    # The FMA model rounds otherwise than the plain version.
+    assert not torch.equal(_fma_model(xt, g)[0],
+                           mk.dots_fp32_plain(xt, g)[0])
+
+
+@pytest.mark.parametrize("n_blocks", [1, 2, 3])
+def test_dots_fp32_library_matches_plain(n_blocks):
+    """The library yardstick (one product of g and the laid-out phi)
+    computes K5's function: every block's (128, T) sums; the last block's
+    and the column sums lie within the library's bound of the f64 value,
+    and within the two bounds together of the plain version."""
+    xt, g, _, _ = mxu_micro.inputs(blocks=n_blocks, tile=TILE, seed=14,
+                                   device="cpu")
+    sums = mk.dots_fp32_library(xt, g)()
+    assert sums.shape == (n_blocks, 128, TILE)
+    assert sums.dtype == torch.float32
+    got = (sums[-1], sums.sum(1))
+    exact = mk.dots_fp32_exact(xt, g)
+    r_out, r_cs = mk.bound_ratio(got, exact, mk.LIBRARY_CHAINS)
+    assert r_out <= 1 and r_cs <= 1
+    plain = mk.dots_fp32_plain(xt, g)
+    for lib, pl_, scale, k_lib, k in zip(got, plain, exact[2:],
+                                         mk.LIBRARY_CHAINS, mk.KERNEL_CHAINS):
+        slack = mk.rounding_bound(scale, k_lib) + mk.rounding_bound(scale, k)
+        assert ((lib.double() - pl_.double()).abs() <= slack).all()
+
+
 @pytest.mark.parametrize("n_blocks", [1, 2, 3])
 @pytest.mark.parametrize("name,split", [("mxu1_kernel", False),
                                         ("mxu3_kernel", True)])
@@ -300,7 +400,7 @@ def test_mxu_micro_record_on_cpu():
     rec = mxu_micro.run(device="cpu", blocks=2, tile=TILE, warmup=0,
                         iters=1, chain=1)
     assert rec["device"] == "cpu" and rec["blocks"] == 2
-    for name in ("vpu", "vpu_fma", "mxu1", "mxu3"):
+    for name in ("vpu", "vpu_fma", "vpu_lib", "mxu1", "mxu3"):
         for unit in ("ms", "ns_per_block"):
             x = rec[f"{name}_{unit}"]
             assert np.isfinite(x) and x > 0
@@ -318,6 +418,38 @@ def test_mxu_micro_record_on_cpu():
     assert 1e-3 < rec["rel_err_bf16x1"] < 1e-2
     assert rec["rel_err_bf16x3"] < 3e-5
     assert "rel err bf16x3" in mxu_micro.report(rec)
+    assert "vpu_lib" in mxu_micro.report(rec)
+
+
+_SASS = """
+\t\tFunction : _Z6kernelPf
+        /*0000*/                   MOV R1, c[0x0][0x28] ;
+        /*0010*/                   SYNCS.PHASECHK.TRANS64.TRYWAIT P0, [R2], R3 ;
+        /*0020*/              @!P0 BRA 0x10 ;
+        /*0030*/                   LDS.128 R4, [R5] ;
+        /*0040*/                   FFMA R6, R4, R7, R6 ;
+        /*0050*/                   FMUL R8, R4, R7 ;
+        /*0060*/               @P1 BRA 0x30 ;
+        /*0070*/                   FADD R9, R6, R8 ;
+        /*0080*/               @P2 BRA 0x0 ;
+        /*0090*/                   NOP ;
+        /*00a0*/                   EXIT ;
+"""
+
+
+def test_sass_inner_loop_on_text():
+    """The census reads addresses, opcodes and branch targets; the
+    innermost loop holding the FP32 work is the FFMA/FMUL loop, not the
+    barrier's spin loop (no FP32) nor the outer loop (longer)."""
+    per = sass.instructions(_SASS)
+    insns = per["_Z6kernelPf"]
+    assert len(insns) == 10 and insns[-1][1] == "EXIT"
+    assert sass.census(_SASS)["_Z6kernelPf"]["_total"] == 10
+    body, lo, hi = sass.inner_loop(insns)
+    assert (lo, hi) == (0x30, 0x60)
+    assert sass.summary(body) == {"instructions": 4, "LDS": 1, "FFMA": 1,
+                                  "FMUL": 1, "BRA": 1}
+    assert sass.inner_loop(insns[:2]) == (None, None, None)
 
 
 def _dots_args():
