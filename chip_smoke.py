@@ -15,7 +15,8 @@ Phases, one line each (any failure exits non-zero before the result):
    sweep's launch plan, which must equal its plain version ([balance]);
    with --variants, the kernel at other chunk sizes ([variants]);
 4. the main path at full size: RenderSession.create, 3 warm rebuilds,
-   1024x1024 block-order primaries, coherent trace (times on the card);
+   1024x1024 block-order primaries, coherent trace (times on the card;
+   the session replays captured graphs, phase 15);
 5. correctness: 4096 sampled rays against the brute-force oracle on the
    card, and a 128x128 eye-light render against the oracle's render and
    the JAX package's dhash;
@@ -143,6 +144,25 @@ Phases, one line each (any failure exits non-zero before the result):
    trace_wavefront on the card on a 65,536-ray subset (tri ids and the
    bits of t/u/v, the plain version's time and truncated rays). One
    JSON line {"reference_options": ...} carries the numbers.
+15. the compiled frame: the packet session replays each calibrated wave
+   and each warm rebuild as one captured CUDA graph (utils/graphs.py),
+   and here each graphed call is held bit-equal to the eager path on the
+   same grid and budgets: cold build -> trace -> warm -> trace -> warm
+   -> trace on deformed frames (each trace against trace_sweep on the
+   current grid, each warm grid against build_packet(check=False),
+   table by table), then on a fresh session the warm rebuild, the
+   1024x1024 primaries, an AO wave, a shadow wave and path bounce 1
+   (tri ids and the bits of t/u/v), hits held across a replay of their
+   graph on other rays, and a key whose budgets poll_overflow grew
+   (captured anew, still bit-equal); each capture's time and
+   torch.cuda.memory_reserved once every key is captured; then the
+   primary frame, an AO wave, render_ao 1024x1024 x 4, path_trace
+   512x512 x 4 bounces, the warm rebuild and the dynamic frame, graphed
+   and eager in turns, 10 calls each (host wall, CUDA-event ms; no
+   sweep wrapper call and no plain version on the graphed calls), and
+   each under torch.profiler (device busy, idle share, device kernels a
+   call, and the sweep kernels it saw against the launches counted).
+   One JSON line {"compiled_frame": ...} carries the numbers.
 The last two lines are the kernels' JSON record and
 {"ok": true, "device": {...}}. Needs a CUDA device; imports no JAX.
 """
@@ -151,8 +171,10 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import itertools
 import json
 import pathlib
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -172,6 +194,7 @@ from hagrid_tpu_torch.io.image import dhash, hamming, shade_eyelight
 from hagrid_tpu_torch.ops import _build, sortrays, wavefront
 from hagrid_tpu_torch.ops import micro_kernels as mk
 from hagrid_tpu_torch.ops import sweep_kernel as sk
+from hagrid_tpu_torch.ops import sweep_trace as st_mod
 from hagrid_tpu_torch.ops.sweep_kernel import sweep_blocks, sweep_blocks_plain
 from hagrid_tpu_torch.ops.sweep_trace import (_BIG_BITS, first_round_stream,
                                               trace_sweep)
@@ -303,6 +326,10 @@ OPT_CLI_TIMEOUT = 400
 DENSE_ITEMS_BYTES_PER_BLOCK = 32 * (8 + 20 + 4 + 1 + 8) + 32
 LOCKSTEP_SUBSET = 1 << 16
 DEV = "cuda"
+# Phase 15: calls of each timed path, graphed and eager in turns, and the
+# calls of each under torch.profiler.
+COMPILED_CALLS = 10
+COMPILED_PROFILE_RUNS = 3
 
 
 class SmokeFailure(Exception):
@@ -659,6 +686,8 @@ def profile(what, fn, card, path, runs=3):
                if e.device_type == DeviceType.CUDA) / 1e3 / runs
     kernels = sum(e.count for e in events
                   if e.device_type == DeviceType.CUDA) / runs
+    sweeps = sum(e.count for e in events if e.device_type == DeviceType.CUDA
+                 and "sweep_kernel" in e.key) / runs
     ops = [(e.self_device_time_total / 1e3 / runs, e.count // runs, e.key)
            for e in events if e.device_type == DeviceType.CPU
            and e.self_device_time_total > 0]
@@ -671,14 +700,15 @@ def profile(what, fn, card, path, runs=3):
     print(f"[profile] {what}: host wall {wall:.3f}-{max(walls):.3f} ms "
           f"per synced call; device busy {busy:.3f} ms per call, idle "
           f"share {max(0.0, 1 - busy / wall):.3f}, {kernels:.0f} device "
-          f"kernels per call ({card}); by op: {top}", flush=True)
+          f"kernels per call, {sweeps:g} of them sweep kernels ({card}); by "
+          f"op: {top}", flush=True)
     if path:
         with open(path, "a") as out:
             out.write(f"# {what}, {card}: device ms per call, calls per "
                       f"call, op\n")
             out.writelines(f"{ms:.4f}\t{n}\t{k}\n" for ms, n, k in ops)
     return dict(wall_ms=walls, busy_ms=busy, kernels=kernels,
-                idle_share=max(0.0, 1 - busy / wall))
+                sweep_kernels=sweeps, idle_share=max(0.0, 1 - busy / wall))
 
 
 def anyhit_phase(session, rays, hits, tris, card, with_variants):
@@ -756,6 +786,10 @@ def slice_phase(session, cam, card):
         runs[what]()
     torch.cuda.synchronize()
     grew = session.poll_overflow(recalibrate=True)
+    if grew:        # capture the grown keys' graphs off the timed runs
+        for fn in runs.values():
+            fn()
+        torch.cuda.synchronize()
     print(f"[slice] first runs (calibration) {time.perf_counter() - t0:.2f} "
           f"s; overflow grown after them: {grew}", flush=True)
     reset_launches()
@@ -2089,6 +2123,266 @@ def reference_options_phase(session, rays, hits, tris, ao_wave, s_irr,
     return rec, launches, streams, march
 
 
+@contextlib.contextmanager
+def eager_waves(session):
+    """Within the block the session traces its packet waves op by op, as
+    it did before its graphs: trace_sweep on its grid at the calibrated
+    budgets (a graphed call calibrates them first), flags ORed as the
+    graphs OR them."""
+    def trace(rays, any_hit=False, coherent=False, cal_key=None):
+        key = (any_hit, coherent, rays.count, cal_key)
+        bmax, rowmax = session._bmax_cal[key]
+        hits, ovf = trace_sweep(session.grid, rays, any_hit=any_hit,
+                                coherent=coherent, bmax=bmax, rowmax=rowmax,
+                                return_overflow=True)
+        session._ovf[key].logical_or_(ovf)
+        session.trace_overflow.logical_or_(ovf)
+        return hits
+
+    session.trace = trace
+    try:
+        yield
+    finally:
+        del session.trace
+
+
+def eager_rebuild(session, tris):
+    """The warm rebuild op by op: build_packet at the session's capacity,
+    dims and bounds with check=False; the session keeps its grid."""
+    g = session.grid
+    return build_packet(tris, bbox=session.bbox, ref_capacity=g.ref_capacity,
+                        dims3=g.dims3, check=False)
+
+
+def bits_equal(name, got, want):
+    bad, dt = hits_bits_diff(got, want)
+    print(f"[compiled] {name}: graphed against eager on {got.tri_id.numel()}"
+          f" rays, fields not bit-equal {bad} (max |dt| {dt:g}), "
+          f"{int((got.tri_id >= 0).sum())} hits", flush=True)
+    check(not bad, f"{name}: the graphed call differs from the eager one "
+          f"in {bad}")
+
+
+def graph_of(session, slot):
+    cap = session._graphs.captured(slot)
+    check(cap is not None and cap.graph is not None,
+          f"no captured graph for {slot}")
+    return cap
+
+
+def compiled_frame_phase(v, f, tris, rays, cam, card):
+    """Phase 15: the packet session's compiled frame. Returns (record,
+    the sweep launches of its graphed timed calls)."""
+    t_phase = time.perf_counter()
+    rec = {"card": card}
+    tables = ("rs", "rowinfo", "cols", "total_refs", "total_pairs",
+              "planes", "bbox_lo", "bbox_hi")
+
+    # 1. Sequence on deformed frames: cold -> trace -> warm -> trace ->
+    # warm -> trace, each trace against trace_sweep on the current grid
+    # and each warm grid against build_packet.
+    anim = AnimatedScene(v, f)
+    ext = v.max(0) - v.min(0)
+    ds = RenderSession.create(anim.frame(0.0), BuildParams.dynamic(),
+                              "packet", verts=v,
+                              bbox_margin=float(0.26 / max(float(ext.min()),
+                                                           1e-6)))
+    pkey = (False, True, rays.count, None)
+    for step, t in (("cold", None), ("warm 1", 0.1), ("warm 2", 0.2)):
+        if t is not None:
+            frame_tris = anim.frame(t)
+            ds.rebuild(frame_tris)
+            bad = tables_equal(ds.grid, eager_rebuild(ds, frame_tris),
+                               tables)
+            check(not bad, f"sequence {step}: graphed rebuild differs in "
+                  f"{bad}")
+        hits = ds.trace(rays, coherent=True)
+        bmax, rowmax = ds._bmax_cal[pkey]
+        bits_equal(f"sequence, trace after {step}", hits, trace_sweep(
+            ds.grid, rays, coherent=True, bmax=bmax, rowmax=rowmax))
+    rec["sequence_captures"] = len(ds._graphs.keys())
+
+    # 2. A fresh session on the static scene; every key captured, each
+    # call held bit-equal to the eager path on the same grid and budgets.
+    s = RenderSession.create(tris, structure="packet", verts=v)
+    s.rebuild(tris)                      # captures the warm rebuild
+    bad = tables_equal(s.grid, eager_rebuild(s, tris), tables)
+    check(not bad, f"warm rebuild: graphed differs from build_packet in "
+          f"{bad}")
+    print(f"[compiled] warm rebuild: graphed tables bit-equal to "
+          f"build_packet(check=False) on {', '.join(tables)}", flush=True)
+    prim = s.trace(rays, coherent=True)
+    bmax, rowmax = s._bmax_cal[pkey]
+    bits_equal("primary frame", prim, trace_sweep(
+        s.grid, rays, coherent=True, bmax=bmax, rowmax=rowmax))
+    p, n, found = hit_points_normals(rays, prim, tris.n)
+    gen = torch.Generator(device=DEV).manual_seed(15)
+    max_dist = integrators.default_ao_distance(s)
+    grid = s.grid
+
+    def sort(w):
+        return sortrays.sort_rays(w, grid.bbox_lo, grid.bbox_hi, bits=10,
+                                  origin_major=True)[0]
+
+    ao_w = sort(integrators.ao_rays(p, n, found, max_dist, gen))
+    ao_w2 = sort(integrators.ao_rays(p, n, found, max_dist, gen))
+    sh_w = sort(integrators.shadow_rays(p, n, found, LIGHT)[0])
+    jitter = torch.rand((PATH_SIZE * PATH_SIZE, 2), generator=gen,
+                        device=DEV)
+    pprim = primary_rays(cam, PATH_SIZE, PATH_SIZE, jitter=jitter,
+                         order="block", device=DEV)
+    ph = s.trace(pprim, coherent=True)
+    pp, pn, pfound = hit_points_normals(pprim, ph, tris.n)
+    b1 = sort(integrators._spawn(pp, pn, cosine_hemisphere(pn, gen), 0.0,
+                                 torch.where(pfound, float("inf"), 0.0)))
+    waves = {"AO wave": (ao_w, True, "ao"), "shadow wave": (sh_w, True,
+                                                              "shadow"),
+             "path bounce 1": (b1, False, "path")}
+    for name, (w, any_hit, ck) in waves.items():
+        got = s.trace(w, any_hit=any_hit, cal_key=ck)
+        bmax, rowmax = s._bmax_cal[(any_hit, False, w.count, ck)]
+        bits_equal(name, got, trace_sweep(grid, w, any_hit=any_hit,
+                                          bmax=bmax, rowmax=rowmax))
+    # Output safety: hits held across a replay of their key on other rays.
+    a = s.trace(ao_w, any_hit=True, cal_key="ao")
+    held = [x.clone() for x in (a.tri_id, a.t, a.u, a.v)]
+    b = s.trace(ao_w2, any_hit=True, cal_key="ao")
+    check(all(torch.equal(x, y) for x, y in zip(held, (a.tri_id, a.t, a.u,
+                                                          a.v))),
+          "hits of an AO wave changed when its graph replayed other rays")
+    check(not torch.equal(a.tri_id >= 0, b.tri_id >= 0),
+          "two AO samples gave the same hits")
+    print("[compiled] output safety: an AO wave's hits unchanged across a "
+          "replay of its graph on the next sample's rays", flush=True)
+    # Growth: a key whose budgets poll_overflow grew is captured anew.
+    gkey = (True, False, sh_w.count, "shadow")
+    old = graph_of(s, ("trace", gkey))
+    b0 = s._bmax_cal[gkey]
+    s._ovf[gkey].fill_(True)
+    check(s.poll_overflow(), "poll_overflow missed a set flag")
+    check(s._graphs.captured(("trace", gkey)) is None,
+          "poll_overflow kept the grown key's graph")
+    got = s.trace(sh_w, any_hit=True, cal_key="shadow")
+    b1_ = s._bmax_cal[gkey]
+    check(graph_of(s, ("trace", gkey)) is not old and b1_[0] > b0[0],
+          "the grown key was not captured anew")
+    bits_equal(f"shadow wave at grown budgets {b1_} (were {b0})", got,
+               trace_sweep(grid, sh_w, any_hit=True, bmax=b1_[0],
+                           rowmax=b1_[1]))
+    check(not s.poll_overflow(recalibrate=False), "phase 15 waves overflowed")
+
+    # 3. Timing: graphed and eager in turns, COMPILED_CALLS each.
+    frame_t = (0.3 + 0.01 * i for i in itertools.count())
+
+    def dyn_graphed():
+        ds.rebuild(anim.frame(next(frame_t)))
+        return ds.trace(rays, coherent=True)
+
+    def dyn_eager():
+        g = eager_rebuild(ds, anim.frame(next(frame_t)))
+        return trace_sweep(g, rays, coherent=True,
+                           bmax=ds._bmax_cal[pkey][0])
+
+    def ao_frame():
+        return integrators.render_ao(s, cam, AO_SIZE, AO_SIZE, seed=0,
+                                     n_samples=AO_SAMPLES)
+
+    def path_frame():
+        return integrators.path_trace(s, cam, PATH_SIZE, PATH_SIZE, seed=0,
+                                      spp=1, max_bounces=PATH_BOUNCES)
+
+    def in_eager(fn):
+        def run():
+            with eager_waves(s):
+                return fn()
+        return run
+
+    paths = {
+        "primary frame": (lambda: s.trace(rays, coherent=True),
+                          in_eager(lambda: s.trace(rays, coherent=True))),
+        "AO wave": (lambda: integrators.trace_sorted(
+            s, ao_w2, any_hit=True, cal_key="ao"),
+            in_eager(lambda: integrators.trace_sorted(
+                s, ao_w2, any_hit=True, cal_key="ao"))),
+        "render_ao": (ao_frame, in_eager(ao_frame)),
+        "path_trace": (path_frame, in_eager(path_frame)),
+        "warm rebuild": (lambda: s.rebuild(tris),
+                         lambda: eager_rebuild(s, tris)),
+        "dynamic frame": (dyn_graphed, dyn_eager),
+    }
+    for _ in range(2):      # captures any key still new; then grows and
+        for name, (fg, fe) in paths.items():  # captures anew what clipped
+            fg()
+            fe()
+        torch.cuda.synchronize()
+        rec.setdefault("grown_before_timing", []).append(
+            s.poll_overflow() | ds.poll_overflow())
+    check(not rec["grown_before_timing"][-1],
+          "phase 15 waves still overflow after growing their budgets")
+    rec["memory_reserved"] = torch.cuda.memory_reserved()
+    rec["captures"] = {
+        str(slot): graph_of(sess, slot).capture_s
+        for sess in (s, ds) for slot in sess._graphs.keys()}
+    print(f"[compiled] captures (warm-up, capture and first replay, s): "
+          f"{rec['captures']}; torch.cuda.memory_reserved "
+          f"{rec['memory_reserved']} B after every key is captured",
+          flush=True)
+    reset_launches()
+    launches = dict(sk.launches)     # of the graphed timed calls
+    timed = {}
+    for name, (fg, fe) in paths.items():
+        r = {"graphed": {"wall_ms": [], "ms": []},
+             "eager": {"wall_ms": [], "ms": []}}
+        for _ in range(COMPILED_CALLS):
+            before = dict(sk.launches)
+            with refusing(st_mod, "sweep_blocks"), refusing(
+                    sk, "sweep_blocks_plain"):
+                w, d, _ = wall_and_device_ms(fg, 1)
+            for k in launches:
+                launches[k] += sk.launches[k] - before[k]
+            r["graphed"]["wall_ms"] += w
+            r["graphed"]["ms"] += d
+            w, d, _ = wall_and_device_ms(fe, 1)
+            r["eager"]["wall_ms"] += w
+            r["eager"]["ms"] += d
+        timed[name] = r
+    for name, (fg, fe) in paths.items():
+        for kind, fn in (("graphed", fg), ("eager", fe)):
+            before = dict(sk.launches)
+            r = timed[name][kind]
+            prof = profile(f"{name}, {kind}", fn, card, None,
+                           runs=COMPILED_PROFILE_RUNS)
+            r.update({k: prof[k] for k in ("busy_ms", "kernels",
+                                            "sweep_kernels", "idle_share")},
+                     profile_wall_ms=prof["wall_ms"])
+            r["sweep_launches"] = sum(sk.launches[k] - before[k]
+                                      for k in before) / (
+                2 * COMPILED_PROFILE_RUNS)
+            r["profiler_sees_launches"] = (r["sweep_kernels"]
+                                           == r["sweep_launches"])
+        g, e = timed[name]["graphed"], timed[name]["eager"]
+        print(f"[compiled] {name}: host wall graphed {span(g['wall_ms'])} "
+              f"ms (median {statistics.median(g['wall_ms']):.3f}), eager "
+              f"{span(e['wall_ms'])} (median "
+              f"{statistics.median(e['wall_ms']):.3f}); CUDA events graphed "
+              f"median {statistics.median(g['ms']):.3f} ms, eager "
+              f"{statistics.median(e['ms']):.3f}; device busy "
+              f"{g['busy_ms']:.3f} / {e['busy_ms']:.3f} ms, idle share "
+              f"{g['idle_share']:.3f} / {e['idle_share']:.3f}, device "
+              f"kernels a call {g['kernels']:.0f} / {e['kernels']:.0f}; "
+              f"sweep kernels the profiler saw a call {g['sweep_kernels']:g}"
+              f" / {e['sweep_kernels']:g} against {g['sweep_launches']:g} / "
+              f"{e['sweep_launches']:g} counted launches ({card})",
+              flush=True)
+    rec["timed"] = timed
+    rec["launches"] = launches
+    check(not s.poll_overflow(recalibrate=False), "phase 15 overflowed")
+    rec["phase_s"] = time.perf_counter() - t_phase
+    print(f"[compiled] phase 15 took {rec['phase_s']:.1f} s", flush=True)
+    print(json.dumps({"compiled_frame": rec}), flush=True)
+    return rec, launches
+
+
 def max_diff(got, want):
     return max(float((a.float() - b.float()).abs().max())
                for a, b in zip(got, want))
@@ -2591,7 +2885,8 @@ def main(profile_path=False, with_variants=False) -> int:
     session = RenderSession.create(tris, structure="packet", verts=v)
     torch.cuda.synchronize()
     cold_s = time.perf_counter() - t0
-    rebuild_ms = cuda_ms(lambda: session.rebuild(tris), iters=3, warmup=0)
+    # The first warm rebuild captures its graph: untimed.
+    rebuild_ms = cuda_ms(lambda: session.rebuild(tris), iters=3, warmup=1)
     check(not bool(session.grid.overflowed), "warm rebuild overflowed")
     t0 = time.perf_counter()
     session.trace(rays, coherent=True)          # calibrates the budget
@@ -2691,6 +2986,9 @@ def main(profile_path=False, with_variants=False) -> int:
     k2_c = ref_streams["k2_compact_coherent"]
     k3_d = ref_streams["k3_dense_incoherent"]
 
+    # 15. the compiled frame: graphed calls against eager ones
+    _, comp_launches = compiled_frame_phase(v, f, tris, rays, cam, card)
+
     # 6. optional device-time breakdown, run last
     if profile_path is not False:
         for what, fn in (("frame", lambda: session.trace(rays, coherent=True)),
@@ -2723,6 +3021,7 @@ def main(profile_path=False, with_variants=False) -> int:
              replaces=REPLACES,
              launches=launches + ref_launches["sweep_blocks"],
              launches_reference_options=ref_launches["sweep_blocks"],
+             launches_compiled_frame=comp_launches["sweep_blocks"],
              max_abs_err=max(err, err1, err_r, path["err"], opt_err["k2"],
                              k2_c["max_abs_err"]),
              ms=ms,
@@ -2746,6 +3045,7 @@ def main(profile_path=False, with_variants=False) -> int:
              launches=(slice_launches["sweep_blocks_anyhit"]
                        + ref_launches["sweep_blocks_anyhit"]),
              launches_reference_options=ref_launches["sweep_blocks_anyhit"],
+             launches_compiled_frame=comp_launches["sweep_blocks_anyhit"],
              launches_options=opt_launches["sweep_blocks_anyhit"],
              max_abs_err=max(ao["err"], opt_err["k3"], k3_d["max_abs_err"]),
              ms=ao["ms"], plain_ms=ao["plain_ms"],

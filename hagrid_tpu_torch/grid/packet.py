@@ -35,6 +35,7 @@ from ..core.types import Triangles, cross
 from ..ops.segment import (add_at_drop, cumsum_i32, expand_by_counts,
                            segment_starts, sort_pairs, trunc_i32)
 from ..utils.config import density_dims
+from ..utils.graphs import const
 from .uniform import tri_box_overlap, tri_voxel_ranges
 
 MT_COLS = 20       # per-ref precomputed row width
@@ -221,8 +222,8 @@ def _build(tris: Triangles, bbox_lo, bbox_hi, dims3, ref_capacity,
         tvk = tri_t[tri_idx.long()]
 
         # Exact SAT pruning of (tri, cell) pairs.
-        csx = (bbox_hi - bbox_lo) / torch.tensor(
-            dims_xyz, dtype=torch.float32, device=dev)
+        csx = (bbox_hi - bbox_lo) / const(tuple(dims_xyz), torch.float32,
+                                          dev)
         cell_lo = bbox_lo[None, :] + v.to(torch.float32) * csx[None, :]
         cell_hi = cell_lo + csx[None, :]
         cell_lo[:, a] = P[v[:, a].clamp(0, da).long()]
@@ -381,6 +382,19 @@ def padded_bounds(lo, hi):
     return lo - pad, hi + pad
 
 
+def grid_bounds(tris: Triangles, bbox=None):
+    """The grid's bounds on the host, float32: the scene's host bounds
+    `bbox`, or with none the tris' bounds (one device read), each side
+    padded (padded_bounds)."""
+    if bbox is not None:
+        lo, hi = bbox
+    else:
+        tlo, thi = tris.bounds()
+        lo = tlo.min(0).values.cpu().numpy()
+        hi = thi.max(0).values.cpu().numpy()
+    return padded_bounds(lo, hi)
+
+
 def build_packet(tris: Triangles, cross_density: float = 0.4,
                  slice_density: float = 0.02,
                  ref_capacity: int | None = None,
@@ -418,13 +432,7 @@ def build_packet(tris: Triangles, cross_density: float = 0.4,
             total_pairs=torch.tensor(0, dtype=torch.int32, device=dev),
             tris=tris,
             planes=torch.tensor([[0.0, 1.0]] * 3, **f32))
-    if bbox is not None:
-        lo, hi = bbox
-    else:
-        tlo, thi = tris.bounds()
-        lo = tlo.min(0).values.cpu().numpy()
-        hi = thi.max(0).values.cpu().numpy()
-    lo, hi = padded_bounds(lo, hi)
+    lo, hi = grid_bounds(tris, bbox)
     if dims3 is None and dims is None:
         cross_d = [min(d, 1023) for d in
                    density_dims(hi - lo, tris.count, cross_density)]
@@ -447,15 +455,25 @@ def build_packet(tris: Triangles, cross_density: float = 0.4,
     bbox_lo = torch.as_tensor(lo, **f32)
     bbox_hi = torch.as_tensor(hi, **f32)
     while True:
-        rs, rowinfo, cols, pairs, total, planes = _build(
-            tris, bbox_lo, bbox_hi, dims3, ref_capacity, adaptive=adaptive,
-            refine=refine)
+        grid = build_fixed(tris, bbox_lo, bbox_hi, dims3, ref_capacity,
+                           adaptive=adaptive, refine=refine)
         if not check:
-            break
-        t = int(pairs)
+            return grid
+        t = int(grid.total_pairs)
         if t <= ref_capacity:
-            break
+            return grid
         ref_capacity = -(-int(t * 1.25) // 768) * 768
+
+
+def build_fixed(tris: Triangles, bbox_lo, bbox_hi, dims3, ref_capacity,
+                adaptive: bool = False, refine: bool = False) -> PacketGrid:
+    """One build at fixed dims3, capacity (a multiple of 768) and bounds
+    (f32[3] on the tris' device), with no host read: build_packet's
+    body, and a warm rebuild, which RenderSession captures as one CUDA
+    graph."""
+    rs, rowinfo, cols, pairs, total, planes = _build(
+        tris, bbox_lo, bbox_hi, dims3, ref_capacity, adaptive=adaptive,
+        refine=refine)
     return PacketGrid(dims3=dims3, bbox_lo=bbox_lo, bbox_hi=bbox_hi,
                       rs=rs, rowinfo=rowinfo, cols=cols,
                       total_refs=total, total_pairs=pairs, tris=tris,

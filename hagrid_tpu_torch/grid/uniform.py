@@ -20,6 +20,7 @@ from ..core.types import Triangles, cross
 from ..ops.segment import (expand_by_counts, segment_starts, sort_pairs,
                            trunc_i32)
 from ..utils.config import density_dims
+from ..utils.graphs import const
 
 
 @dataclasses.dataclass
@@ -56,12 +57,12 @@ def tri_voxel_ranges(tris: Triangles, bbox_lo, bbox_hi, dims):
     """Conservative AABB binning: per-tri inclusive voxel range [lo, hi],
     each i32[T, 3] clipped to the grid."""
     dev = tris.device
-    d = torch.tensor(dims, dtype=torch.float32, device=dev)
-    inv_cs = d / (bbox_hi - bbox_lo)
+    dims = tuple(int(x) for x in dims)
+    inv_cs = const(dims, torch.float32, dev) / (bbox_hi - bbox_lo)
     tlo, thi = tris.bounds()
     lo = trunc_i32(torch.floor((tlo - bbox_lo) * inv_cs))
     hi = trunc_i32(torch.floor((thi - bbox_lo) * inv_cs))
-    dmax = torch.tensor(dims, dtype=torch.int32, device=dev) - 1
+    dmax = const(dims, torch.int32, dev) - 1
     zero = torch.zeros_like(dmax)
     return (torch.minimum(torch.maximum(lo, zero), dmax),
             torch.minimum(torch.maximum(hi, zero), dmax))

@@ -30,8 +30,9 @@ def add_at_drop(n: int, idx: torch.Tensor, vals) -> torch.Tensor:
     """zeros[n] with `vals` added at `idx`; indices >= n are dropped
     (idx must be non-negative). The result has the dtype of a tensor
     `vals`, i32 for a Python number."""
-    if not torch.is_tensor(vals):
-        vals = torch.tensor(vals, dtype=torch.int32, device=idx.device)
+    if not torch.is_tensor(vals):   # a fill, not a copy from the host
+        vals = torch.full(idx.shape, vals, dtype=torch.int32,
+                          device=idx.device)
     out = torch.zeros((n + 1,), dtype=vals.dtype, device=idx.device)
     out.index_add_(0, idx.clamp(max=n).long(), vals.expand(idx.shape))
     return out[:n]

@@ -28,7 +28,8 @@ behind the ray's closest hit.
 `sweep_blocks` runs the CUDA kernel for CUDA tensors and the plain
 version `sweep_blocks_plain` for CPU tensors; it counts kernel launches
 per instance in `launches` ("sweep_blocks" closest hit,
-"sweep_blocks_anyhit" any hit). On the card each call is one C call that
+"sweep_blocks_anyhit" any hit; a launch that a graph captured counts
+at each replay of the graph). On the card each call is one C call that
 launches three kernels: a plan kernel cuts each tile's run of blocks into
 chunks of at most C blocks (`chunk_plan`; sized from shapes, no host
 read), the sweep runs one CTA a chunk, and a resolve pass merges the
@@ -42,6 +43,7 @@ import ctypes
 
 import torch
 
+from ..utils.graphs import count_launch
 from . import _build
 
 UNIT_ROWS = 4          # group rows of `cols` per gather unit
@@ -57,7 +59,8 @@ MIN_CHUNK = 16
 CHUNK_TARGET = 16384
 PLAN_BINS = 64   # the plan kernel's size classes (kPlanBins)
 
-# Kernel launches per instance, counted where the kernel is launched.
+# Kernel launches per instance, counted where the kernel is launched; a
+# launch inside a captured graph (utils/graphs.py) counts at every replay.
 launches = {"sweep_blocks": 0, "sweep_blocks_anyhit": 0}
 
 
@@ -334,5 +337,6 @@ def _sweep_cuda(xt, cols, gidx, tile_of, tminb, tile, any_hit, skipped,
         ptr(plan.data_ptr()), ptr(partial.data_ptr()),
         ptr(torch.cuda.current_stream(xt.device).cuda_stream))
     raise_on(lib, err, "sweep")
-    launches["sweep_blocks_anyhit" if any_hit else "sweep_blocks"] += 1
+    count_launch(launches, "sweep_blocks_anyhit" if any_hit
+                 else "sweep_blocks")
     return out

@@ -40,6 +40,7 @@ import torch
 from ..core.types import Hits, Rays
 from ..grid.packet import BIG as _BIG
 from ..grid.packet import PacketGrid, rays_to_x
+from ..utils.graphs import const
 from .segment import add_at_drop, cumsum_i32, expand_by_counts, trunc_i32
 from .sweep_kernel import UNIT_ROWS, UNITS_PER_BLOCK, sweep_blocks
 
@@ -52,10 +53,6 @@ _IBIG = 1 << 20
 _BIG_BITS = int(np.float32(_BIG).view(np.int32))  # bit pattern of BIG
 _NGROUPS = 7    # (axis, sign) ray groups + 1 dead group
 _NGROUPS_FINE = 25  # (axis, sign, minor-sign quadrant) groups + 1 dead
-
-
-def _i32(x, device):
-    return torch.as_tensor(x, dtype=torch.int32, device=device)
 
 
 def _clip(x, lo, hi):
@@ -96,11 +93,12 @@ def _pad_coherent(org, dir, tmin, tmax, n_pad, tile):
     return xp_ext, xp_ext.t().contiguous()
 
 
+_DEAD_ROW = (1.0, -1e30) + (0.0,) * 2 + (1.0,) + (0.0,) * 11
+
+
 def _dead_row(device):
     """X row of a dead ray (tmax = 0: never traced, never hits)."""
-    dead = torch.zeros((16,), dtype=torch.float32, device=device)
-    dead[0], dead[1], dead[4] = 1.0, -1e30, 1.0
-    return dead
+    return const(_DEAD_ROW, torch.float32, device)
 
 
 def _bin_rays(org, dir, tmin, tmax, n_pad, tile, fine=False):
@@ -176,7 +174,8 @@ def _tile_tabs(bbox_lo, bbox_hi, dims3):
         b, c = (a + 1) % 3, (a + 2) % 3
         cs_rows.append(torch.stack([ext[a] / da, ext[b] / db, ext[c] / dc]))
         lo_rows.append(torch.stack([bbox_lo[a], bbox_lo[b], bbox_lo[c]]))
-    n_tab = _i32([list(d) for d in dims3], bbox_lo.device)
+    n_tab = const(tuple(tuple(int(x) for x in d) for d in dims3),
+                  torch.int32, bbox_lo.device)
     return torch.stack(cs_rows), n_tab, torch.stack(lo_rows)
 
 
@@ -350,7 +349,7 @@ def _plan_dense(per_ray, per_tile, cs_tab, n_tab, lo_tab, ka, best_t,
     for a in range(3):
         qbase_list.append(off)
         off += dims3[a][0] * dims3[a][1]
-    qbase = _i32(qbase_list, dev)[ax]                    # (nt,)
+    qbase = const(tuple(qbase_list), torch.int32, dev)[ax]   # (nt,)
     k_cl = _clip(ks, 0, n_a[:, None] - 1)
 
     return dict(
@@ -727,7 +726,7 @@ def _merge(best, out, tile_of):
     best_t, best_id, best_u, best_v = best
     nt, tile = best_t.shape
     touched = torch.zeros((nt + 1,), dtype=torch.bool, device=best_t.device)
-    touched[tile_of.long()] = True
+    touched.index_fill_(0, tile_of.long(), True)
     t_new, id_new, u_new, v_new = (x[:nt * tile].reshape(nt, tile)
                                    for x in out)
     improved = touched[:nt, None] & (
@@ -887,6 +886,21 @@ def _budgets(grid, n, any_hit, coherent, tile, slab, bmax, rowmax,
     return tile, slab, n_pad, bcaps, rowcaps
 
 
+def trace_frame(grid: PacketGrid, rays: Rays, any_hit: bool,
+                coherent: bool, tile=None, slab=None, bmax=None, rowmax=None,
+                fine_bins: bool = False, compact=None, rmax=None):
+    """trace_sweep's whole frame, with no host read: (hits, overflow,
+    peak round block demand, peak round live rows). RenderSession
+    captures it as one CUDA graph per calibrated wave key."""
+    tile, slab, n_pad, bcaps, rowcaps = _budgets(
+        grid, rays.count, any_hit, coherent, tile, slab, bmax, rowmax,
+        fine_bins, compact)
+    frame = _Frame(grid, rays, tile, n_pad, coherent, fine_bins)
+    best, overflow, demand_max, rows_max = frame.run(
+        slab, bcaps, rmax or _RMAX, any_hit, rowcaps)
+    return (frame.hits(best, rays.count), overflow, demand_max, rows_max)
+
+
 def trace_sweep(grid: PacketGrid, rays: Rays, any_hit: bool = False,
                 tile: int | None = None, slab: int | None = None,
                 bmax: int | None = None, return_overflow: bool = False,
@@ -908,15 +922,9 @@ def trace_sweep(grid: PacketGrid, rays: Rays, any_hit: bool = False,
     dropped and the device-side overflow flag is set
     (return_overflow=True). return_demand adds i32[2] = [peak round block
     demand, peak round live rows (compact planner; 0 otherwise)]."""
-    n = rays.count
-    fine_bins = bool(fine_bins)   # None: the reference's default, off
-    tile, slab, n_pad, bcaps, rowcaps = _budgets(
-        grid, n, any_hit, coherent, tile, slab, bmax, rowmax, fine_bins,
-        compact)
-    frame = _Frame(grid, rays, tile, n_pad, coherent, fine_bins)
-    best, overflow, demand_max, rows_max = frame.run(
-        slab, bcaps, rmax or _RMAX, any_hit, rowcaps)
-    hits = frame.hits(best, n)
+    hits, overflow, demand_max, rows_max = trace_frame(
+        grid, rays, any_hit, coherent, tile, slab, bmax, rowmax,
+        bool(fine_bins), compact, rmax)   # fine_bins None: off, as there
     out = (hits,)
     if return_overflow:
         out = out + (overflow,)

@@ -8,7 +8,11 @@ Structures:
   (blocks, and live rows for the compact planner) are calibrated once
   per wave shape off the timed path (one host read per probe);
   calibrated frames read nothing back, and overflow stays a device flag
-  that `poll_overflow` reads at frame boundaries.
+  that `poll_overflow` reads at frame boundaries. As the reference
+  compiles its frame and its warm build, each calibrated wave and each
+  warm rebuild runs as one captured CUDA graph on the card, replayed
+  with the sweep kernel inside (utils/graphs.py); on CPU tensors the
+  same bodies run directly.
 - "irregular": the two-level irregular grid and the wavefront tracer on
   its packed tables.
 - "uniform": the single-level grid and the same wavefront.
@@ -28,8 +32,9 @@ import torch
 
 from ..core.types import Hits, Rays, Triangles
 from ..grid import irregular, packet, uniform
-from ..ops.sweep_trace import trace_sweep
+from ..ops.sweep_trace import trace_frame, trace_sweep
 from ..utils.config import BuildParams
+from ..utils.graphs import Graphs, const
 
 _STRUCTURES = ("packet", "irregular", "uniform")
 # Ceiling on the calibrated block budget: the frame's transient arrays
@@ -57,14 +62,18 @@ class RenderSession:
     structure: str
     grid: object
     bbox: tuple | None = None  # host-side scene bounds (warm rebuilds)
-    # Device bool: OR of the sweep's overflow flags since session start.
+    # Device bool: OR of the sweep's overflow flags since session start
+    # (or the last poll_overflow that grew a budget); written in place.
     trace_overflow: torch.Tensor | None = None
     # Calibrated (block budget, live-row budget or None) per wave key.
     _bmax_cal: dict = dataclasses.field(default_factory=dict)
-    # Per-wave-key accumulated overflow flags (device bools).
+    # Per-wave-key accumulated overflow flags (device bools, written in
+    # place by the wave's graph).
     _ovf: dict = dataclasses.field(default_factory=dict)
     # (packet grid, its (lo, hi) as the build computed them on the host).
     _host_bounds: tuple | None = None
+    # The packet paths' captures: ("trace", wave key) and "rebuild".
+    _graphs: Graphs = dataclasses.field(default_factory=Graphs)
 
     @staticmethod
     def create(tris: Triangles, params: BuildParams | None = None,
@@ -92,7 +101,9 @@ class RenderSession:
 
     def rebuild(self, tris: Triangles):
         """Per-frame rebuild. Warm packet frames reuse frame 1's capacity
-        and dims and run with no host synchronisation; warm uniform
+        and dims and run with no host synchronisation, as one captured
+        graph whose tables stay at fixed addresses (each warm rebuild
+        overwrites the previous warm grid's tables); warm uniform
         frames reuse its ref capacity and dims, warm irregular frames its
         top dims."""
         if self.structure == "uniform":
@@ -109,11 +120,10 @@ class RenderSession:
                 kw = dict(top_dims=self.grid.top_dims)
             self.grid = irregular.build_irregular(tris, self.params, **kw)
             return self.grid.total_refs
-        kw = dict(bbox=self.bbox)
-        if self.grid is not None:
-            kw.update(ref_capacity=self.grid.ref_capacity,
-                      dims3=self.grid.dims3, check=False)
-        self.grid = packet.build_packet(tris, **kw)
+        if self.grid is None:
+            self.grid = packet.build_packet(tris, bbox=self.bbox)
+        else:
+            self.grid = self._warm_packet(tris)
         if self.bbox is None:
             self.bbox = (self.grid.bbox_lo.cpu().numpy(),
                          self.grid.bbox_hi.cpu().numpy())
@@ -122,6 +132,35 @@ class RenderSession:
             bounds = packet.padded_bounds(*self.bbox)
         self._host_bounds = (self.grid, bounds) if tris.count else None
         return self.grid.total_refs
+
+    def _warm_packet(self, tris: Triangles):
+        """build_packet at the grid's capacity and dims with check=False,
+        replayed as one captured graph per (tris, dims3, capacity,
+        bounds)."""
+        g = self.grid
+        if not 0 < tris.count < packet.MAX_TRIS:   # empty, or it raises
+            return packet.build_packet(
+                tris, bbox=self.bbox, ref_capacity=g.ref_capacity,
+                dims3=g.dims3, check=False)
+        lo, hi = (tuple(x.tolist())
+                  for x in packet.grid_bounds(tris, self.bbox))
+        lo_t, hi_t = (const(x, torch.float32, tris.device) for x in (lo, hi))
+        dims3, cap = g.dims3, g.ref_capacity
+
+        def body(v0, e1, e2, n):
+            w = packet.build_fixed(Triangles(v0, e1, e2, n), lo_t, hi_t,
+                                   dims3, cap)
+            return (w.rs, w.rowinfo, w.cols, w.total_refs, w.total_pairs,
+                    w.planes)
+
+        rs, rowinfo, cols, total, pairs, planes = self._graphs.call(
+            "rebuild", (tris.count, dims3, cap, lo, hi), body,
+            (tris.v0, tris.e1, tris.e2, tris.n), reads=(lo_t, hi_t),
+            fresh=False)
+        return packet.PacketGrid(
+            dims3=dims3, bbox_lo=lo_t, bbox_hi=hi_t, rs=rs, cols=cols,
+            total_refs=total, total_pairs=pairs, tris=tris,
+            rowinfo=rowinfo, planes=planes)
 
     def host_bounds(self):
         """The current grid's (lo, hi) on the host, float32, where the
@@ -150,14 +189,27 @@ class RenderSession:
         if cal is None:
             cal = self._calibrate(key, rays, any_hit, coherent)
         bmax, rowmax = cal
-        hits, ovf = trace_sweep(self.grid, rays, any_hit=any_hit,
-                                coherent=coherent, bmax=bmax, rowmax=rowmax,
-                                return_overflow=True)
-        prev = self._ovf.get(key)
-        self._ovf[key] = ovf if prev is None else prev | ovf
-        self.trace_overflow = ovf if self.trace_overflow is None \
-            else self.trace_overflow | ovf
-        return hits
+        dev = rays.device
+        if self.trace_overflow is None:
+            self.trace_overflow = torch.zeros((), dtype=torch.bool,
+                                              device=dev)
+        if key not in self._ovf:
+            self._ovf[key] = torch.zeros((), dtype=torch.bool, device=dev)
+        grid, flag, total = self.grid, self._ovf[key], self.trace_overflow
+
+        def body(org, dir, tmin, tmax):
+            hits, ovf, _, _ = trace_frame(
+                grid, Rays(org, dir, tmin, tmax), any_hit, coherent,
+                bmax=bmax, rowmax=rowmax)
+            flag.logical_or_(ovf)
+            total.logical_or_(ovf)
+            return hits.tri_id, hits.t, hits.u, hits.v
+
+        return Hits(*self._graphs.call(
+            ("trace", key), (grid.dims3, bmax, rowmax), body,
+            (rays.org, rays.dir, rays.tmin, rays.tmax),
+            reads=(grid.rs, grid.rowinfo, grid.cols, grid.planes,
+                   grid.bbox_lo, grid.bbox_hi, flag, total)))
 
     def _calibrate(self, key, rays: Rays, any_hit: bool, coherent: bool):
         """Budget calibration, once per wave shape and off any timed
@@ -198,7 +250,8 @@ class RenderSession:
     def poll_overflow(self, recalibrate: bool = True) -> bool:
         """Read the accumulated overflow flags (one host sync; call at
         frame boundaries). With recalibrate=True, grow each offending
-        wave's budgets one step (x2 on the ladders) and clear its flag.
+        wave's budgets one step (x2 on the ladders), drop its graph and
+        zero its flag and trace_overflow in place (a graph writes them).
         Returns the OR of the flags."""
         if not self._ovf:
             return False
@@ -215,8 +268,10 @@ class RenderSession:
                 self._bmax_cal[key] = (
                     min(_rung(bmax * 2, 1024), _BMAX_CAP),
                     _rung(rowmax * 2, 8192) if rowmax else rowmax)
-                del self._ovf[key]
-            self.trace_overflow = None
+                self._ovf[key].zero_()
+                self._graphs.drop(("trace", key))
+            if self.trace_overflow is not None:
+                self.trace_overflow.zero_()
         return any_ovf
 
     def describe(self) -> str:

@@ -1,0 +1,174 @@
+"""Captured CUDA graphs: the port's counterpart of the reference's
+`jax.jit` programs on the packet path (the whole-frame `_frame` of
+hagrid_tpu/ops/sweep_trace.py with its ray layout, and the warm build
+`_build` of hagrid_tpu/grid/packet.py).
+
+A `Graphs` cache holds one `Captured` body per slot. A body is a function
+of its static input buffers that returns a tuple of tensors:
+- on the card, its first call copies the caller's tensors into the
+  buffers, runs the body once eagerly on a side stream (which loads the
+  kernels and makes the constants of `const`), captures it into a
+  `torch.cuda.CUDAGraph` and replays it once; later calls copy and
+  replay. A capture that fails raises; nothing runs eagerly instead;
+- on CPU tensors the same calls copy into the buffers and run the body
+  on them directly, with no capture.
+Either way the outputs live at fixed addresses that each call
+overwrites: `Graphs.call` hands out fresh copies unless asked for the
+buffers themselves.
+
+A key holds the body's static arguments and (data_ptr, shape, dtype) of
+every tensor the body reads in place instead of copying, so a table at
+other addresses gets a new capture, never a stale read; a slot holds one
+key at a time.
+
+Kernel launches are counted where they happen: a wrapper calls
+`count_launch`, which adds to its counter at once, or, while a graph
+captures, to that graph's tally; each replay adds the tally again.
+"""
+
+from __future__ import annotations
+
+import time
+
+import torch
+
+# The launch tally of the capture in progress ({(id, name): [counter,
+# name, n]}), or None.
+_tally = None
+# Device constants made from host values, by (values, dtype, device).
+_consts: dict = {}
+
+
+def count_launch(counter: dict, name: str):
+    """One launch of kernel `name`, counted in `counter`; during a
+    capture the graph's replays count it instead."""
+    if _tally is None:
+        counter[name] += 1
+        return
+    entry = _tally.setdefault((id(counter), name), [counter, name, 0])
+    entry[2] += 1
+
+
+def const(values, dtype, device) -> torch.Tensor:
+    """torch.tensor(values) on `device`, made once per (values, dtype,
+    device) and shared: a copy from the host synchronises, which a
+    capture forbids, so the warm-up run before a capture makes it and
+    the capture reads it. values: nested tuples; never write to the
+    result."""
+    key = (values, dtype, torch.device(device))
+    t = _consts.get(key)
+    if t is None:
+        t = _consts[key] = torch.tensor(values, dtype=dtype, device=device)
+    return t
+
+
+def _reads_key(reads) -> tuple:
+    return tuple((t.data_ptr(), tuple(t.shape), t.dtype) for t in reads)
+
+
+class Captured:
+    """One body with its static input buffers, and on the card its graph
+    and the launches the graph holds."""
+
+    def __init__(self, what, body, inputs):
+        self.what = what
+        self.body = body
+        self.static = tuple(torch.empty(x.shape, dtype=x.dtype,
+                                        device=x.device) for x in inputs)
+        self.outputs = None
+        self.graph = None
+        self.tally = ()
+        self.capture_s = None   # seconds of the warm-up, capture, replay
+
+    def __call__(self, inputs) -> tuple:
+        if len(inputs) != len(self.static):
+            raise ValueError(f"{self.what}: {len(inputs)} inputs, the "
+                             f"buffers take {len(self.static)}")
+        for s, x in zip(self.static, inputs):
+            if (x.device, x.shape, x.dtype) != (s.device, s.shape, s.dtype):
+                raise ValueError(
+                    f"{self.what}: input {tuple(x.shape)} {x.dtype} on "
+                    f"{x.device}, the buffer is {tuple(s.shape)} {s.dtype} "
+                    f"on {s.device}")
+            s.copy_(x)
+        if self.static[0].device.type != "cuda":
+            out = tuple(self.body(*self.static))
+            if self.outputs is None:
+                self.outputs = out
+            else:
+                for o, n in zip(self.outputs, out):
+                    o.copy_(n)
+        elif self.graph is None:
+            self._capture()
+        else:
+            self.graph.replay()
+            self._count()
+        return self.outputs
+
+    def _count(self):
+        for counter, name, n in self.tally:
+            counter[name] += n
+
+    def _capture(self):
+        global _tally
+        t0 = time.perf_counter()
+        cur = torch.cuda.current_stream()
+        side = torch.cuda.Stream()
+        side.wait_stream(cur)
+        with torch.cuda.stream(side):
+            self.body(*self.static)
+        cur.wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        _tally = {}
+        try:
+            with torch.cuda.graph(graph):
+                out = tuple(self.body(*self.static))
+        except RuntimeError as e:
+            root = e
+            while root.__context__ is not None:   # the op that broke it
+                root = root.__context__
+            raise RuntimeError(f"capture of {self.what} failed: "
+                               f"{root}") from e
+        finally:
+            tally, _tally = _tally, None
+        self.tally = tuple(tuple(v) for v in tally.values())
+        self.graph, self.outputs = graph, out
+        graph.replay()
+        self._count()
+        torch.cuda.synchronize()
+        self.capture_s = time.perf_counter() - t0
+
+
+class Graphs:
+    """Captured bodies by slot, one key a slot."""
+
+    def __init__(self):
+        self._slots = {}     # slot -> (key, Captured)
+
+    def call(self, slot, key, body, inputs, reads=(), fresh=True) -> tuple:
+        """body's outputs on `inputs`, from the slot's capture for `key`
+        and the addresses of `reads` (captured now if the slot holds
+        another). fresh=False returns the capture's own output buffers,
+        which the next call of the slot overwrites."""
+        key = (tuple(key), _reads_key(reads))
+        held = self._slots.get(slot)
+        if held is None or held[0] != key:
+            self._slots.pop(slot, None)
+            cap = Captured((slot, key[0]), body, inputs)
+            out = cap(inputs)
+            self._slots[slot] = (key, cap)
+        else:
+            out = held[1](inputs)
+        return tuple(o.clone() for o in out) if fresh else out
+
+    def drop(self, slot):
+        """Forget the slot's capture (and free its graph's memory)."""
+        self._slots.pop(slot, None)
+
+    def keys(self) -> dict:
+        """slot -> the key its capture holds."""
+        return {s: k for s, (k, _) in self._slots.items()}
+
+    def captured(self, slot) -> Captured | None:
+        held = self._slots.get(slot)
+        return held and held[1]

@@ -1108,3 +1108,94 @@ def test_lockstep_entry_points_launch_the_march_kernel(cuda, monkeypatch,
     assert wavefront.last_trace_stats["truncated_rays"] == 0
     _assert_hits_bit_equal(got, want, structure)
     assert (got.tri_id >= 0).any()
+
+
+def _graph_scene(name, device):
+    if name == "cornell":
+        v, f = scenes.cornell_box()
+        cam = scenes.cornell_camera()
+    else:
+        v, f = scenes.random_soup(2000, seed=5)
+        from hagrid_tpu_torch.core.camera import Camera
+        cam = Camera(eye=(0.5, 0.5, 3.0), center=(0.5, 0.5, 0.5),
+                     fov_deg=40)
+    return v, f, primary_rays(cam, 64, 64, order="block", device=device)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("scene", ["cornell", "soup"])
+def test_graphed_session_equals_eager_on_card(cuda, monkeypatch, scene):
+    """RenderSession(structure="packet") on the card replays captured
+    graphs: a coherent primary wave, an any-hit AO wave and a closest-hit
+    bounce equal trace_sweep on the same grid and budgets bit for bit,
+    and warm rebuilds equal build_packet(check=False) table by table;
+    replays make no wrapper call and every replay adds its launches."""
+    from hagrid_tpu_torch.ops import sweep_trace as st
+    v, f, rays = _graph_scene(scene, cuda)
+    tris = Triangles.from_mesh(v, f, device=cuda)
+    s = RenderSession.create(tris, verts=v, bbox_margin=0.05)
+    for frame in range(2):
+        moved = Triangles.from_mesh(v + np.float32(0.01 * (frame + 1)), f,
+                                    device=cuda)
+        s.rebuild(moved)
+        want = build_packet(moved, bbox=s.bbox,
+                            ref_capacity=s.grid.ref_capacity,
+                            dims3=s.grid.dims3, check=False)
+        for k in ("rs", "rowinfo", "cols", "total_refs", "total_pairs",
+                  "planes", "bbox_lo", "bbox_hi"):
+            assert torch.equal(getattr(s.grid, k), getattr(want, k)), k
+    prim = s.trace(rays, coherent=True)
+    p, n, found = hit_points_normals(rays, prim, moved.n)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    ao = integrators.ao_rays(p, n, found, 0.3, gen)
+    bounce = integrators._spawn(p, n, cosine_hemisphere(n, gen), 0.0,
+                                torch.where(found, float("inf"), 0.0))
+    waves = ((rays, dict(coherent=True)),
+             (ao, dict(any_hit=True, cal_key="ao")),
+             (bounce, dict(cal_key="path")))
+    for wave, kw in waves:
+        s.trace(wave, **kw)                     # calibrates and captures
+    for wave, kw in waves:
+        key = (kw.get("any_hit", False), kw.get("coherent", False),
+               wave.count, kw.get("cal_key"))
+        bmax, rowmax = s._bmax_cal[key]
+        eager = dict(launches)
+        want = st.trace_sweep(s.grid, wave, any_hit=key[0],
+                              coherent=key[1], bmax=bmax, rowmax=rowmax)
+        per = {k: launches[k] - eager[k] for k in launches}
+        assert sum(per.values()) > 0
+        with monkeypatch.context() as m:
+            m.setattr(st, "sweep_blocks", _refuse("sweep_blocks"))
+            m.setattr(sk, "sweep_blocks_plain", _refuse("sweep_blocks_plain"))
+            before = dict(launches)
+            got = [s.trace(wave, **kw) for _ in range(3)]
+        torch.cuda.synchronize()
+        assert {k: launches[k] - before[k] for k in launches} == \
+            {k: 3 * n for k, n in per.items()}
+        for g in got:
+            _assert_hits_bit_equal(g, want, str(key))
+    assert not s.poll_overflow(recalibrate=False)
+
+
+@pytest.mark.gpu
+def test_failed_capture_raises_on_card(cuda, monkeypatch):
+    """An op of the body that reads the card breaks the capture: the
+    trace raises, naming the capture, and nothing runs eagerly instead;
+    the body without it captures."""
+    from hagrid_tpu_torch.ops import sweep_trace as st
+    v, f, rays = _graph_scene("cornell", cuda)
+    s = RenderSession.create(Triangles.from_mesh(v, f, device=cuda), verts=v)
+    s._bmax_cal[(False, True, rays.count, None)] = (1024, None)
+    merge = st._merge
+
+    def reading_merge(best, out, tile_of):
+        bool(tile_of.max() > 0)
+        return merge(best, out, tile_of)
+
+    monkeypatch.setattr(st, "_merge", reading_merge)
+    with pytest.raises(RuntimeError, match="capture of"):
+        s.trace(rays, coherent=True)
+    assert s._graphs.keys() == {}
+    monkeypatch.undo()
+    hits = s.trace(rays, coherent=True)
+    assert (hits.tri_id >= 0).any()

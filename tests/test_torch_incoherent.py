@@ -455,7 +455,8 @@ def test_render_ao_and_path_trace_bounded():
 
 def test_poll_overflow_grows_rows_budget():
     """poll_overflow grows an offending incoherent wave's (blocks, rows)
-    budgets one rung each and clears its flag."""
+    budgets one rung each, clears its flag in place and drops its
+    graph."""
     v, f = scenes.cornell_box()
     s = RenderSession.create(Triangles.from_mesh(v, f, device=CPU),
                              verts=v)
@@ -470,7 +471,8 @@ def test_poll_overflow_grows_rows_budget():
     assert s.poll_overflow() is True
     bmax1, rows1 = s._bmax_cal[key]
     assert bmax1 >= 2 * bmax0 and rows1 >= 2 * rows0
-    assert key not in s._ovf and s.poll_overflow() is False
+    assert ("trace", key) not in s._graphs.keys()
+    assert not s._ovf[key].item() and s.poll_overflow() is False
 
 
 def test_entry_points_default_to_the_card():

@@ -253,19 +253,23 @@ class _Reads:
 
 def test_poll_overflow_reads_once(monkeypatch):
     """Three wave keys, two overflowed: one read; only the offending
-    keys grow and leave the flag table, and trace_overflow resets."""
+    keys grow, and their flags and trace_overflow are zeroed in place
+    (the waves' graphs write them)."""
     s = RenderSession(params=None, structure="packet", grid=None)
     flag = lambda b: torch.tensor(b)  # noqa: E731
     s._bmax_cal = {"a": (2048, 8192), "b": (4096, None), "c": (1024, 8192)}
     s._ovf = {"a": flag(True), "b": flag(False), "c": flag(True)}
     s.trace_overflow = flag(True)
+    held = dict(s._ovf, total=s.trace_overflow)
     reads = _Reads(monkeypatch)
     assert s.poll_overflow() is True
     assert reads.n == 1
     grown = lambda b, r: (_rung(b * 2, 1024), _rung(r * 2, 8192))  # noqa
     assert s._bmax_cal == {"a": grown(2048, 8192), "b": (4096, None),
                            "c": grown(1024, 8192)}
-    assert list(s._ovf) == ["b"] and s.trace_overflow is None
+    assert all(s._ovf[k] is held[k] for k in "abc")    # the same tensors
+    assert s.trace_overflow is held["total"]
+    assert not any(t.item() for t in held.values())
     # Without recalibration: the OR only, nothing grows, one read.
     monkeypatch.undo()
     s._ovf["a"] = flag(True)
