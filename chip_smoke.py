@@ -68,7 +68,8 @@ Phases, one line each (any failure exits non-zero before the result):
    launch counts from zero;
 12. the paper's structures at full width on the Sponza-scale scene:
    RenderSession(structure="irregular") with BuildParams() (cold build,
-   3 warm rebuilds, describe(), capacities, device memory,
+   3 warm rebuilds after one that captures their graphs (phase 16),
+   describe(), capacities, device memory,
    check_irregular on a sample of 2^20 voxels and (tri, voxel) pairs),
    a 1024x1024 block-order primary frame through the wavefront
    (ms, Mrays/s, hit fraction, wavefront.last_trace_stats with no
@@ -163,6 +164,28 @@ Phases, one line each (any failure exits non-zero before the result):
    each under torch.profiler (device busy, idle share, device kernels a
    call, and the sweep kernels it saw against the launches counted).
    One JSON line {"compiled_frame": ...} carries the numbers.
+16. the compiled builds of the paper's structures: the irregular (with
+   BuildParams() and .dynamic()) and uniform sessions replay their warm
+   rebuilds' spans of device work as captured graphs, and AnimatedScene
+   its frame's deform; on the Sponza-scale scene each is held bit-equal
+   to the eager path: the graphed frame against the eager deform, each
+   warm grid of cold -> warm -> warm -> a frame whose cell-ref (uniform:
+   ref) capacity was forced below its need (the span overflows, grows
+   and is captured anew) against build_irregular / build_uniform, table
+   by table; the reference bench's dynamic workload on each structure (a
+   warm-up frame, then 5 frames at t = 0.1 (i + 1) of graphed deform,
+   graphed warm rebuild and a 1024x1024 coherent trace through the
+   march kernel, one sync; frames/s by the host clock, ms/frame between
+   CUDA events, one march launch a trace, the last frame's hits
+   bit-equal to the same frame traced on an eager build, 4096 sampled
+   rays against the oracle); each capture's time and
+   torch.cuda.memory_reserved once every key is captured; then the warm
+   rebuilds, the dynamic frames and the deformed frame, graphed and
+   eager in turns, 10 calls each (host wall, CUDA-event ms, every table
+   bit-equal on every call), each under torch.profiler (device busy,
+   idle share, device kernels a call), and each span's graph replayed
+   alone (its device time). One JSON line {"compiled_builds": ...}
+   carries the numbers.
 The last two lines are the kernels' JSON record and
 {"ok": true, "device": {...}}. Needs a CUDA device; imports no JAX.
 """
@@ -171,6 +194,8 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
+import functools
 import itertools
 import json
 import pathlib
@@ -330,6 +355,11 @@ DEV = "cuda"
 # calls of each under torch.profiler.
 COMPILED_CALLS = 10
 COMPILED_PROFILE_RUNS = 3
+# Phase 16: calls of each timed build path, graphed and eager in turns;
+# frames of each dynamic loop; replays of each span timed alone.
+BUILD_CALLS = 10
+BUILD_FRAMES = 5
+SPAN_REPLAYS = 5
 
 
 class SmokeFailure(Exception):
@@ -1005,8 +1035,10 @@ def wave_record(name, wave, fn, tris, card, any_hit, min_hit=0.5):
 
 
 def build_record(name, session, tris, card):
-    """Cold build (done by the caller) and STRUCT_REBUILDS warm rebuilds:
-    host wall and device ms of each."""
+    """Cold build (done by the caller), one untimed warm rebuild (it
+    captures the build's graphs) and STRUCT_REBUILDS warm rebuilds: host
+    wall and device ms of each."""
+    session.rebuild(tris)
     walls, devs, _ = wall_and_device_ms(lambda: session.rebuild(tris),
                                         STRUCT_REBUILDS)
     print(f"[structures] {name} warm rebuild x{STRUCT_REBUILDS}: host wall "
@@ -1367,6 +1399,7 @@ def structures_phase(v, tris, rays, card):
                                  structure="irregular", verts=v)
     torch.cuda.synchronize()
     irr["dynamic_cold_wall_ms"] = (time.perf_counter() - t0) * 1e3
+    s_dyn.rebuild(tris)                 # captures the build's graphs
     walls, devs, _ = wall_and_device_ms(lambda: s_dyn.rebuild(tris), 1)
     irr["dynamic_warm_wall_ms"], irr["dynamic_warm_ms"] = walls[0], devs[0]
     print(f"[structures] irregular BuildParams.dynamic(): cold "
@@ -2279,7 +2312,7 @@ def compiled_frame_phase(v, f, tris, rays, cam, card):
         return ds.trace(rays, coherent=True)
 
     def dyn_eager():
-        g = eager_rebuild(ds, anim.frame(next(frame_t)))
+        g = eager_rebuild(ds, eager_frame(anim, next(frame_t)))
         return trace_sweep(g, rays, coherent=True,
                            bmax=ds._bmax_cal[pkey][0])
 
@@ -2380,6 +2413,307 @@ def compiled_frame_phase(v, f, tris, rays, cam, card):
     rec["phase_s"] = time.perf_counter() - t_phase
     print(f"[compiled] phase 15 took {rec['phase_s']:.1f} s", flush=True)
     print(json.dumps({"compiled_frame": rec}), flush=True)
+    return rec, launches
+
+
+def eager_frame(anim, t):
+    """AnimatedScene.frame op by op: the deform and Triangles.from_mesh
+    outside its graph."""
+    return Triangles.from_mesh(anim.deform(anim.base_vertices, t),
+                               anim.faces)
+
+
+def grid_diff(got, want, fields):
+    """The fields of two grids that are not bit-equal, compared on the
+    card (float tables by their bits)."""
+    def bits(x):
+        return x.view(torch.int32) if x.dtype == torch.float32 else x
+    return [k for k in fields
+            if not torch.equal(bits(getattr(got, k)), bits(getattr(want, k)))]
+
+
+def spans_of(session):
+    return {slot: graph_of(session, slot) for slot in session._graphs.keys()}
+
+
+def build_sequence(name, session, build, frames, fields, force):
+    """The session's warm rebuilds on `frames` ((step, tris)), each grid
+    against build(tris, session's grid) op by op, every table bit-equal;
+    force(session) before the last frame forces a span's capacity below
+    what its frame needs (the span overflows, grows and is captured anew).
+    Returns {step: spans captured anew}."""
+    out = {}
+    for k, (step, tris) in enumerate(frames):
+        if k == len(frames) - 1:
+            force(session)
+        before = spans_of(session)
+        session.rebuild(tris)
+        want = build(tris, session.grid)
+        bad = grid_diff(session.grid, want, fields)
+        anew = sorted(str(k) for k, c in spans_of(session).items()
+                      if before.get(k) is not c)
+        out[step] = anew
+        print(f"[compiled] {name}, {step}: graphed tables against the eager "
+              f"build {'bit-equal' if not bad else f'DIFFER in {bad}'}; "
+              f"spans captured anew {anew}", flush=True)
+        check(not bad, f"{name} {step}: the graphed build differs in {bad}")
+    return out
+
+
+def dynamic_loop(name, session, anim, params, eager_build, eager_trace,
+                 card):
+    """The reference bench's dynamic workload on a wavefront structure: a
+    warm-up frame at t = 0, then BUILD_FRAMES frames at t = 0.1 (i + 1),
+    each a graphed deform, a graphed warm rebuild and a coherent trace of
+    the 1024x1024 primaries through K8, one sync at the end; the last
+    frame's hits against the same frame traced on an eager build (bits)
+    and 4096 sampled rays against the oracle. Returns the record and the
+    march launches of the timed run."""
+    rays = primary_rays(scenes.sponza_camera(), 1024, 1024, order="block",
+                        device=DEV)
+
+    def frame(t):
+        session.rebuild(anim.frame(t))
+        return session.trace(rays, coherent=True)
+
+    frame(0.0)
+    times = [0.1 * (i + 1) for i in range(BUILD_FRAMES)]
+    torch.cuda.synchronize()
+    before = wavefront.launches["wavefront_march"]
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    w0 = time.perf_counter()
+    start.record()
+    hits = [frame(t) for t in times]
+    end.record()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - w0
+    launches = wavefront.launches["wavefront_march"] - before
+    last = anim.frame(times[-1])
+    want = eager_trace(eager_build(last, session.grid), rays)
+    bad, dt = hits_bits_diff(hits[-1], want)
+    r = dict(frames=BUILD_FRAMES, fps=BUILD_FRAMES / wall,
+             ms=start.elapsed_time(end) / BUILD_FRAMES,
+             march_launches=launches, traces=BUILD_FRAMES,
+             hit_fraction=float((hits[-1].tri_id >= 0).float().mean()),
+             eager_bits_equal=not bad)
+    print(f"[compiled] {name} dynamic loop ({params}): {BUILD_FRAMES} frames "
+          f"of graphed deform + graphed warm rebuild + 1024x1024 coherent "
+          f"trace, one sync: {r['fps']:.3f} frames/s by the host clock, "
+          f"{r['ms']:.3f} ms/frame between CUDA events ({card}); march "
+          f"launches {launches} for {BUILD_FRAMES} traces; last frame's "
+          f"hits against the eager build's "
+          f"{'bit-equal' if not bad else f'DIFFER in {bad}'} (max |dt| "
+          f"{dt:g}); hit fraction {r['hit_fraction']:.4f}; "
+          f"{session.describe()}", flush=True)
+    check(launches == BUILD_FRAMES, f"{name} dynamic loop: {launches} march "
+          f"launches for {BUILD_FRAMES} traces")
+    check(not bad, f"{name} dynamic loop: hits differ from the eager "
+          f"build's in {bad}")
+    check(0.5 < r["hit_fraction"] <= 1.0, f"{name} dynamic loop: hit "
+          f"fraction {r['hit_fraction']}")
+    check_closest_sample(f"{name} dynamic frame t={times[-1]:.1f}", rays,
+                         hits[-1], last)
+    return r, launches
+
+
+def compiled_builds_phase(v, f, tris, card):
+    """Phase 16: the compiled builds of the paper's structures. Returns
+    (record, the march launches of its dynamic loops)."""
+    t_phase = time.perf_counter()
+    rec = {"card": card}
+    irr_fields = ("entries", "cell_min", "cell_max", "cell_starts",
+                  "ref_ids", "alive", "top_info", "erec", "ref_tris",
+                  "num_entries", "total_refs", "top_res_log", "top_offset",
+                  "preexpanded", "bbox_lo", "bbox_hi")
+    uni_fields = ("cell_starts", "ref_ids", "total_refs", "bbox_lo",
+                  "bbox_hi")
+    anim = AnimatedScene(v, f)
+    frames = [(f"warm t={t}", anim.frame(t)) for t in (0.1, 0.2, 0.3)]
+
+    # The deform's graph against the eager deform.
+    for t in (0.1, 0.3):
+        got, want = anim.frame(t), eager_frame(anim, t)
+        bad = grid_diff(got, want, ("v0", "e1", "e2", "n"))
+        print(f"[compiled] wave_deform frame t={t}: graphed triangles "
+              f"{'bit-equal' if not bad else f'DIFFER in {bad}'} to the "
+              f"eager deform and Triangles.from_mesh", flush=True)
+        check(not bad, f"the graphed frame differs in {bad}")
+
+    # 1. Sequences: cold -> warm -> warm -> a forced overflow, each grid
+    # against the eager build.
+    sessions, seq = {}, {}
+
+    def shrink_r2(s):
+        for k in s._caps:
+            if k != "rt":
+                s._caps[k] = 1024
+
+    def irr_build(params):
+        return lambda t, g: irregular.build_irregular(t, params,
+                                                      top_dims=g.top_dims)
+
+    for name, params in (("irregular BuildParams()", BuildParams()),
+                         ("irregular BuildParams.dynamic()",
+                          BuildParams.dynamic())):
+        s = RenderSession.create(anim.frame(0.0), params,
+                                 structure="irregular", verts=v)
+        seq[name] = build_sequence(name, s, irr_build(params), frames,
+                                   irr_fields, shrink_r2)
+        check(seq[name][frames[-1][0]] == ["cells", "finish", "merge"],
+              f"{name}: the forced overflow recaptured "
+              f"{seq[name][frames[-1][0]]}, not spans B-D")
+        sessions[name] = s
+    s = RenderSession.create(anim.frame(0.0), structure="uniform", verts=v)
+    caps = {}
+
+    def shrink_refs(u):
+        caps["forced"] = u.grid.ref_ids.shape[0] // 2
+        u.grid = dataclasses.replace(u.grid,
+                                     ref_ids=u.grid.ref_ids[:caps["forced"]])
+
+    def uni_build(t, g):
+        return uniform.build_uniform(
+            t, ref_capacity=caps.get("forced", g.ref_ids.shape[0]),
+            dims=g.dims)
+
+    seq["uniform"] = build_sequence("uniform", s, uni_build, frames,
+                                    uni_fields, shrink_refs)
+    check(seq["uniform"][frames[-1][0]] == ["uniform"], "uniform: the forced "
+          "overflow was not captured anew")
+    sessions["uniform"] = s
+    rec["sequences"] = seq
+
+    # 2. The dynamic loops (the reference bench's --workload dynamic).
+    launches = 0
+    loops = {}
+    for name, structure, params, build, trace in (
+            ("irregular", "irregular", BuildParams.dynamic(),
+             lambda t, g: irregular.build_irregular(
+                 t, BuildParams.dynamic(), top_dims=g.top_dims),
+             irregular.trace_irregular_fast),
+            ("uniform", "uniform", BuildParams(),
+             lambda t, g: uniform.build_uniform(
+                 t, ref_capacity=g.ref_ids.shape[0], dims=g.dims),
+             uniform.trace_uniform_fast)):
+        ds = RenderSession.create(tris, params, structure=structure, verts=v)
+        loops[name], n = dynamic_loop(
+            name, ds, anim, "BuildParams.dynamic()" if name == "irregular"
+            else "BuildParams()", build,
+            lambda g, r, tr=trace: tr(g, r, coherent=True), card)
+        launches += n
+        sessions[f"{name} dynamic"] = ds
+    rec["dynamic_loops"] = loops
+
+    # 3. Timing: graphed and eager in turns, BUILD_CALLS each; every
+    # graphed table against the eager one on every call.
+    rays = primary_rays(scenes.sponza_camera(), 1024, 1024, order="block",
+                        device=DEV)
+    last = frames[-1][1]
+
+    def rebuilt(session):
+        session.rebuild(last)
+        return session.grid
+
+    paths = {}
+    for name in ("irregular BuildParams()", "irregular BuildParams.dynamic()"):
+        s = sessions[name]
+        paths[f"{name} warm rebuild"] = (
+            functools.partial(rebuilt, s),
+            (lambda s=s: irregular.build_irregular(
+                last, s.params, top_dims=s.grid.top_dims)), irr_fields)
+    u = sessions["uniform"]
+    paths["uniform warm rebuild"] = (
+        functools.partial(rebuilt, u),
+        lambda: uniform.build_uniform(last, ref_capacity=u.grid.ref_ids
+                                      .shape[0], dims=u.grid.dims),
+        uni_fields)
+    frame_t = (0.4 + 0.01 * i for i in itertools.count())
+    for name, trace in (("irregular", irregular.trace_irregular_fast),
+                        ("uniform", uniform.trace_uniform_fast)):
+        ds = sessions[f"{name} dynamic"]
+
+        def graphed(ds=ds):
+            ds.rebuild(anim.frame(next(frame_t)))
+            return ds.trace(rays, coherent=True)
+
+        def eager(ds=ds, name=name, trace=trace):
+            fr = eager_frame(anim, next(frame_t))
+            g = (irregular.build_irregular(fr, ds.params,
+                                           top_dims=ds.grid.top_dims)
+                 if name == "irregular" else uniform.build_uniform(
+                     fr, ref_capacity=ds.grid.ref_ids.shape[0],
+                     dims=ds.grid.dims))
+            return trace(g, rays, coherent=True)
+
+        paths[f"{name} dynamic frame"] = (graphed, eager, None)
+    paths["wave_deform frame"] = (lambda: anim.frame(0.5),
+                                  lambda: eager_frame(anim, 0.5),
+                                  ("v0", "e1", "e2", "n"))
+    for fg, fe, _ in paths.values():     # every key captured
+        fg()
+        fe()
+    torch.cuda.synchronize()
+    rec["memory_reserved"] = torch.cuda.memory_reserved()
+    rec["captures"] = {
+        f"{name}: {slot}": c.capture_s
+        for name, sess in sessions.items()
+        for slot, c in spans_of(sess).items()}
+    rec["captures"]["wave_deform frame"] = graph_of(anim, "frame").capture_s
+    print(f"[compiled] phase 16 captures (warm-up, capture and first "
+          f"replay, s): {rec['captures']}; torch.cuda.memory_reserved "
+          f"{rec['memory_reserved']} B once every key is captured ({card})",
+          flush=True)
+    timed = {}
+    for name, (fg, fe, fields) in paths.items():
+        r = {"graphed": {"wall_ms": [], "ms": []},
+             "eager": {"wall_ms": [], "ms": []}}
+        for _ in range(BUILD_CALLS):
+            w, d, got = wall_and_device_ms(fg, 1)
+            r["graphed"]["wall_ms"] += w
+            r["graphed"]["ms"] += d
+            w, d, want = wall_and_device_ms(fe, 1)
+            r["eager"]["wall_ms"] += w
+            r["eager"]["ms"] += d
+            if fields:
+                bad = grid_diff(got, want, fields)
+                check(not bad, f"{name}: a timed graphed call differs from "
+                      f"the eager one in {bad}")
+        timed[name] = r
+    for name, (fg, fe, fields) in paths.items():
+        for kind, fn in (("graphed", fg), ("eager", fe)):
+            prof = profile(f"{name}, {kind}", fn, card, None,
+                           runs=COMPILED_PROFILE_RUNS)
+            timed[name][kind].update(
+                {k: prof[k] for k in ("busy_ms", "kernels", "idle_share")},
+                profile_wall_ms=prof["wall_ms"])
+        g, e = timed[name]["graphed"], timed[name]["eager"]
+        print(f"[compiled] {name}: host wall graphed {span(g['wall_ms'])} "
+              f"ms (median {statistics.median(g['wall_ms']):.3f}), eager "
+              f"{span(e['wall_ms'])} (median "
+              f"{statistics.median(e['wall_ms']):.3f}); CUDA events graphed "
+              f"median {statistics.median(g['ms']):.3f} ms, eager "
+              f"{statistics.median(e['ms']):.3f}; device busy "
+              f"{g['busy_ms']:.3f} / {e['busy_ms']:.3f} ms, idle share "
+              f"{g['idle_share']:.3f} / {e['idle_share']:.3f}, device "
+              f"kernels a call {g['kernels']:.0f} / {e['kernels']:.0f}; "
+              f"{'every table bit-equal on every call; ' if fields else ''}"
+              f"({card})", flush=True)
+    rec["timed"] = timed
+
+    # 4. Each span's replay alone: its device time.
+    spans = {}
+    for name in ("irregular BuildParams()", "irregular BuildParams.dynamic()",
+                 "uniform"):
+        for slot, c in spans_of(sessions[name]).items():
+            spans[f"{name}: {slot}"] = cuda_ms(c.graph.replay,
+                                               iters=SPAN_REPLAYS)
+    rec["span_ms"] = spans
+    print(f"[compiled] each span's graph replayed alone, ms between CUDA "
+          f"events ({card}): {spans}", flush=True)
+    rec["phase_s"] = time.perf_counter() - t_phase
+    print(f"[compiled] phase 16 took {rec['phase_s']:.1f} s", flush=True)
+    print(json.dumps({"compiled_builds": rec}), flush=True)
     return rec, launches
 
 
@@ -2760,11 +3094,12 @@ def micro_phase(card, dev):
     return list(entries.values())
 
 
-def march_entry(m, ref_launches, lockstep):
+def march_entry(m, ref_launches, lockstep, build_launches):
     """The kernels line's wavefront_march entry: the irregular primary
     frame's trace (the main path's first wave), the AO wave's, the path
     bounce's and the uniform frame's beside it, and phase 14's
-    trace_irregular / trace_uniform calls (launches added to phase 12's).
+    trace_irregular / trace_uniform calls and phase 16's dynamic loops
+    (launches added to phase 12's).
     Every ray is compared bit for bit, so max_abs_err is the largest |dt|
     (0 when equal). No single PyTorch call marches a ray: library_ms is
     null."""
@@ -2777,8 +3112,10 @@ def march_entry(m, ref_launches, lockstep):
     census = m["census"]
     return dict(
         name="wavefront_march", route="cuda", source=MARCH_SOURCE,
-        replaces=MARCH_REPLACES, launches=m["launches"] + ref_launches,
+        replaces=MARCH_REPLACES,
+        launches=m["launches"] + ref_launches + build_launches,
         launches_reference_options=ref_launches,
+        launches_compiled_builds=build_launches,
         lockstep_entry_points={
             k: dict(kernel_ms=r["kernel_ms"], plain_ms=r["plain_ms"],
                     plain_rays=r["subset"], bound_ms=r["bound_ms"],
@@ -2989,6 +3326,9 @@ def main(profile_path=False, with_variants=False) -> int:
     # 15. the compiled frame: graphed calls against eager ones
     _, comp_launches = compiled_frame_phase(v, f, tris, rays, cam, card)
 
+    # 16. the compiled builds of the paper's structures
+    _, build_launches = compiled_builds_phase(v, f, tris, card)
+
     # 6. optional device-time breakdown, run last
     if profile_path is not False:
         for what, fn in (("frame", lambda: session.trace(rays, coherent=True)),
@@ -3058,7 +3398,8 @@ def main(profile_path=False, with_variants=False) -> int:
              bound_ms_dense_incoherent=k3_d["bound_ms"],
              blocks_dense_incoherent=k3_d["blocks"]),
         *micro_kernels,
-        march_entry(march, ref_launches["wavefront_march"], ref_march)]
+        march_entry(march, ref_launches["wavefront_march"], ref_march,
+                    build_launches)]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -20,9 +20,11 @@ reference's on any device:
   not by a float scatter-add whose order the card does not fix;
 - the uint32 hash of the merge parity is computed in int64 and masked;
 - two-key sorts sort one int64 composite key.
-The host reads the device a few times per build: the scene bounds, the
-ref totals after the top and the cell stages (each retried with a larger
-capacity on overflow), the entry total and the alive cell count.
+The host reads the device where the reference does, between four spans
+of device work (`build_spans`): the ref total after the top stage with
+the entry total, the ref total after the cell stage (each retried with
+a larger capacity on overflow) and the alive cell count; the scene
+bounds only where top_dims must be derived from them.
 """
 
 from __future__ import annotations
@@ -38,7 +40,9 @@ from ..ops.segment import (add_at_drop, compact_indices, cumsum_i32,
                            exclusive_scan, expand_by_counts, rows_to_segments,
                            segment_starts, sort_pairs, take)
 from ..utils.config import BuildParams, density_dims
-from .uniform import bin_refs, linear_cell, scene_box, tri_voxel_ranges
+from ..utils.graphs import const, eager
+from .uniform import (bin_refs, linear_cell, scene_bounds, scene_box,
+                      tri_voxel_ranges)
 
 # SAH constants (cost = half_area * (C_TRAV + C_ISECT * n_refs)).
 C_TRAV = 1.0
@@ -316,10 +320,12 @@ def _stage_airboxes(top_starts, offsets, cell_min, cell_max, top_dims,
         s = cur.shape
         cur = cur.reshape(s[0] // 2, 2, s[1] // 2, 2, s[2] // 2, 2)
         cur = cur.all(dim=5).all(dim=3).all(dim=1)  # level-k cube all air?
-        up = cur
-        for d in range(3):
-            up = up.repeat_interleave(2 ** k, dim=d)
-        best_k = torch.where(up, k, best_k)
+        # Each cube's flag back on its (2^k)^3 cells: repeat_interleave
+        # along the three axes, as a broadcast.
+        z, y, x = cur.shape
+        w = 2 ** k
+        up = cur[:, None, :, None, :, None].expand(z, w, y, w, x, w)
+        best_k = torch.where(up.reshape(pdz, pdy, pdx), k, best_k)
 
     k = best_k[:tdz, :tdy, :tdx].reshape(-1)
     c = torch.arange(tdx * tdy * tdz, dtype=torch.int32, device=dev)
@@ -329,8 +335,7 @@ def _stage_airboxes(top_starts, offsets, cell_min, cell_max, top_dims,
     cube_max = ((base + (torch.ones_like(base) << k[:, None])) << levels) - 1
     # Clamp to the real top dims: edge cubes can stick out when the dims
     # are not multiples of the cube.
-    fine_max = (torch.tensor(top_dims, dtype=torch.int32, device=dev)
-                << levels) - 1
+    fine_max = (const(top_dims, torch.int32, dev) << levels) - 1
     cube_max = torch.minimum(cube_max, fine_max)
 
     rows = torch.where(air & (k > 0), offsets, c_cap).long()
@@ -365,12 +370,11 @@ def _half_area(cmin, cmax, cs):
 _U32 = 0xFFFFFFFF
 
 
-def _hash_bit(x, salt):
+def _hash_bit(x, salt: int):
     """The merge parity: bit 0 of h ^ (h >> 16), h = x * 2654435761 +
     salt * 40503 in uint32 arithmetic (int64 here, masked to 32 bits)."""
     x = x.to(torch.int64) & _U32
-    salt = torch.as_tensor(salt, dtype=torch.int64, device=x.device) & _U32
-    h = (x * 2654435761 + salt * 40503) & _U32
+    h = (x * 2654435761 + (int(salt) & _U32) * 40503) & _U32
     return ((h ^ (h >> 16)) & 1).to(torch.bool)
 
 
@@ -394,8 +398,7 @@ def _box_pair(cmin, cmax, jmin, jmax, axis):
 
 
 def _fine(grid):
-    return torch.tensor(grid.fine_dims, dtype=torch.int32,
-                        device=grid.cell_min.device)
+    return const(grid.fine_dims, torch.int32, grid.cell_min.device)
 
 
 def _absorb(accept, j, c_cap):
@@ -624,6 +627,11 @@ def _bucket(n: int, lo: int = 1024) -> int:
     return b
 
 
+def _cell_capacity(n_alive: int) -> int:
+    """The rows compaction keeps: the reference's bucket of n_alive."""
+    return _bucket(n_alive)
+
+
 def _empty_grid(tris: Triangles) -> IrregularGrid:
     """Degenerate but legal: one empty unit-box cell, every ray misses."""
     dev = tris.device
@@ -643,59 +651,184 @@ def _empty_grid(tris: Triangles) -> IrregularGrid:
         ref_tris=torch.zeros((1, 12), device=dev))
 
 
-def build_stages(tris: Triangles, params: BuildParams,
-                 top_dims: tuple | None = None):
-    """The build up to (not including) the optimisation passes: the grid
-    after the air octree, and the intermediate tables of the top stage
-    (for tests of each stage)."""
-    lo, hi = scene_box(tris)
+# The build as the reference runs it: four spans of device work between
+# its host reads. build_irregular runs each span op by op; a warm
+# RenderSession rebuild replays each as a captured graph
+# (render/session.py).
+# - A (`_span_top`): the scene bounds and `_stage_top`;
+#   read rt_total with e_total;
+# - B (`_span_cells`): `_stage_cells`; read r2_total;
+# - C (`_span_merge`): the air octree, the buddy and the merge passes;
+#   read n_alive (params.compact);
+# - D (`_span_finish`): compaction, the expansion passes, the packed
+#   tables.
+# A span takes the frame's triangles (A) or reads the earlier spans'
+# outputs in place (B-D), and returns a tuple of tensors. A's outputs:
+# the triangles (its inputs), the bounds, the top stage's seven tables
+# and (rt_total, e_total).
+_CELLS = ("entries", "cell_min", "cell_max", "cell_starts", "ref_ids",
+          "alive", "total_refs", "preexpanded")
+_PACKED = ("top_info", "erec", "ref_tris")
+
+
+def _grid(a, cells, top_dims, levels, packed=(None, None, None)):
+    """The grid of span A's outputs `a` and the _CELLS tables `cells`
+    (and the _PACKED tables once packed)."""
+    v0, e1, e2, n, lo, hi, _, _, _, _, res_log, offsets, e_total, _ = a
+    return IrregularGrid(
+        top_dims=top_dims, levels=levels, bbox_lo=lo, bbox_hi=hi,
+        top_res_log=res_log, top_offset=offsets, num_entries=e_total,
+        tris=Triangles(v0, e1, e2, n), **dict(zip(_CELLS, cells)),
+        **dict(zip(_PACKED, packed)))
+
+
+def _span_top(v0, e1, e2, n, top_dims, levels, params, rt_cap):
+    tris = Triangles(v0, e1, e2, n)
+    lo, hi = scene_bounds(tris)
+    top = _stage_top(tris, lo, hi, top_dims, levels, params.snd_density,
+                     params.ref_growth, rt_cap)
+    return (v0, e1, e2, n, lo, hi, *top, torch.stack([top[3], top[6]]))
+
+
+def _span_cells(a, top_dims, levels, e_cap, r2_cap):
+    v0, e1, e2, n, lo, hi, _, keys, refs, _, res_log, offsets, e_total, _ = a
+    return _stage_cells(Triangles(v0, e1, e2, n), lo, hi, keys, refs,
+                        res_log, offsets, e_total, top_dims, levels, e_cap,
+                        r2_cap)
+
+
+def _cells_grid(a, b, top_dims, levels, air_levels):
+    """The grid after the cell stage (span B's outputs `b`) and the air
+    octree, without packed tables."""
+    entries, cmin, cmax, cell_starts, refs, alive, total2 = b
+    cmin, cmax, preexp = _stage_airboxes(a[6], a[11], cmin, cmax, top_dims,
+                                         levels, air_levels,
+                                         entries.shape[0])
+    return _grid(a, (entries, cmin, cmax, cell_starts, refs, alive, total2,
+                     preexp), top_dims, levels)
+
+
+def _span_merge(a, b, top_dims, levels, params):
+    grid = _cells_grid(a, b, top_dims, levels, params.air_levels)
+    # Cheap empty-buddy coalescing first (no ref work), then SAH merges.
+    for _ in range(params.buddy_passes):
+        for axis in range(3):
+            grid = _buddy_pass(grid, axis)
+    for p in range(params.merge_passes):
+        for axis in range(3):
+            grid = _merge_pass(grid, p * 3 + axis + 1, axis,
+                               float(params.alpha))
+    return (*(getattr(grid, k) for k in _CELLS),
+            grid.alive.sum(dtype=torch.int32))
+
+
+def _span_finish(a, c, top_dims, levels, params, cell_cap):
+    """cell_cap: the rows compaction keeps (None: no compaction)."""
+    grid = _grid(a, c[:len(_CELLS)], top_dims, levels)
+    # Compact before expansion: merging kills about half the cells, and
+    # every expansion pass scans all cell rows.
+    if cell_cap is not None:
+        grid = compact_cells(grid, cell_cap)
+    for p in range(params.expansion_passes):
+        for axis in range(3):
+            # The sort-backed subset test runs on the first pass only;
+            # chains continue through the cheap empty rule.
+            grid = _expand_pass(grid, axis,
+                                subset=params.subset_expansion and p == 0)
+    grid = _pack_tables(grid)
+    return tuple(getattr(grid, k) for k in _CELLS + _PACKED)
+
+
+def _top_and_cells(tris, params, top_dims, run, caps):
+    """Spans A and B with their reads: (a, b, top_dims, levels)."""
     n = tris.count
     if top_dims is None:
+        lo, hi = scene_box(tris)
         top_dims = density_dims(hi - lo, n, params.top_density)
     top_dims = tuple(int(d) for d in top_dims)
     # Structural max res: one level beyond the density default, granted
     # per cell only where the ref-growth cap allows (see _stage_top).
     levels = params.levels + 1
-    dev = tris.device
-    bbox_lo = torch.as_tensor(lo, dtype=torch.float32, device=dev)
-    bbox_hi = torch.as_tensor(hi, dtype=torch.float32, device=dev)
-
-    rt_cap = _bucket(int(n * 2.5 * params.ref_slack))
+    # rt_cap sizes no table of the grid: a warm session starts where its
+    # last build ended, so its span A keeps one capture.
+    rt_cap = max(_bucket(int(n * 2.5 * params.ref_slack)), caps.get("rt", 0))
     while True:
-        top = _stage_top(tris, bbox_lo, bbox_hi, top_dims, levels,
-                         params.snd_density, params.ref_growth, rt_cap)
-        t = int(top[3])
+        a = run("top", (n, top_dims, params, rt_cap),
+                functools.partial(_span_top, top_dims=top_dims,
+                                  levels=levels, params=params,
+                                  rt_cap=rt_cap),
+                (tris.v0, tris.e1, tris.e2, tris.n), fresh=False)
+        t, e_total = a[-1].tolist()
         if t <= rt_cap:
             break
         rt_cap = _bucket(int(t * 1.25))
-    top_starts, top_keys, top_refs, _, res_log, offsets, e_total = top
-
-    e_cap = _bucket(int(e_total) + 1)
-    r2_cap = _bucket(int(t * 3.0 * params.ref_slack))
+    caps["rt"] = rt_cap
+    e_cap = _bucket(e_total + 1)
+    # r2_cap sizes ref_ids: the reference's (its first capacity from t,
+    # grown once to fit r2_total). A warm session starts at the capacity
+    # its last build ended on from the same first one.
+    first = _bucket(int(t * 3.0 * params.ref_slack))
+    r2_cap = caps.get(("r2", first), first)
     while True:
-        (entries, cmin, cmax, cell_starts, refs, alive,
-         r2_total) = _stage_cells(tris, bbox_lo, bbox_hi, top_keys, top_refs,
-                                  res_log, offsets, e_total, top_dims,
-                                  levels, e_cap, r2_cap)
-        t2 = int(r2_total)
-        if t2 <= r2_cap:
+        b = run("cells", (top_dims, levels, e_cap, r2_cap),
+                functools.partial(_span_cells, a, top_dims=top_dims,
+                                  levels=levels, e_cap=e_cap, r2_cap=r2_cap),
+                (), reads=a, fresh=False)
+        t2 = int(b[-1])
+        want = first if t2 <= first else _bucket(int(t2 * 1.25))
+        if want == r2_cap:
             break
-        r2_cap = _bucket(int(t2 * 1.25))
+        r2_cap = want
+    caps[("r2", first)] = r2_cap
+    return a, b, top_dims, levels
 
-    cmin, cmax, preexp = _stage_airboxes(
-        top_starts, offsets, cmin, cmax, top_dims, levels,
-        params.air_levels, e_cap)
-    n_top = int(np.prod(top_dims))
-    grid = IrregularGrid(
-        top_dims=top_dims, levels=levels, bbox_lo=bbox_lo, bbox_hi=bbox_hi,
-        top_res_log=res_log, top_offset=offsets, entries=entries,
-        cell_min=cmin, cell_max=cmax, cell_starts=cell_starts, ref_ids=refs,
-        alive=alive, num_entries=e_total, total_refs=r2_total, tris=tris,
-        preexpanded=preexp,
-        top_info=torch.zeros((n_top,), dtype=torch.int32, device=dev),
-        erec=torch.zeros((e_cap, 8), dtype=torch.int32, device=dev),
-        ref_tris=torch.zeros((r2_cap, 12), device=dev))
-    return grid, top
+
+def build_stages(tris: Triangles, params: BuildParams,
+                 top_dims: tuple | None = None):
+    """The build up to (not including) the optimisation passes, op by op:
+    the grid after the air octree, with zero packed tables as the
+    reference's has, and the intermediate tables of the top stage (for
+    tests of each stage)."""
+    a, b, top_dims, levels = _top_and_cells(tris, params, top_dims, eager,
+                                            {})
+    grid = _cells_grid(a, b, top_dims, levels, params.air_levels)
+    dev = tris.device
+    return grid.replace(
+        tris=tris,
+        top_info=torch.zeros((int(np.prod(top_dims)),), dtype=torch.int32,
+                             device=dev),
+        erec=torch.zeros((grid.entries.shape[0], 8), dtype=torch.int32,
+                         device=dev),
+        ref_tris=torch.zeros((grid.ref_ids.shape[0], 12), device=dev)), a[6:13]
+
+
+def build_spans(tris: Triangles, params: BuildParams,
+                top_dims: tuple | None = None, run=eager,
+                caps: dict | None = None) -> IrregularGrid:
+    """build_irregular's host side for a non-empty scene: the four spans,
+    each through `run` (utils/graphs.py's `Graphs.call` signature: `eager`
+    runs a span op by op, a session's `Graphs.call` replays it as a
+    captured graph), and between them the reference's reads: the bounds
+    (only to derive top_dims), rt_total with e_total in one read,
+    r2_total, and n_alive (params.compact). Every capacity that sizes a
+    table is the reference's, so the tables are the same whichever way
+    the spans run. caps: a warm session's capacities of its last build
+    (updated here)."""
+    caps = {} if caps is None else caps
+    a, b, top_dims, levels = _top_and_cells(tris, params, top_dims, run,
+                                            caps)
+    c = run("merge", (top_dims, levels, params),
+            functools.partial(_span_merge, a, b, top_dims=top_dims,
+                              levels=levels, params=params),
+            (), reads=a + b, fresh=False)
+    cell_cap = _cell_capacity(int(c[-1])) if params.compact else None
+    d = run("finish", (top_dims, levels, params, cell_cap),
+            functools.partial(_span_finish, a, c, top_dims=top_dims,
+                              levels=levels, params=params,
+                              cell_cap=cell_cap),
+            (), reads=a + c, fresh=False)
+    return _grid(a, d[:len(_CELLS)], top_dims, levels,
+                 d[len(_CELLS):]).replace(tris=tris)
 
 
 def build_irregular(tris: Triangles, params: BuildParams | None = None,
@@ -707,8 +840,7 @@ def build_irregular(tris: Triangles, params: BuildParams | None = None,
                          f"got {params.levels}")
     if tris.count == 0:
         return _empty_grid(tris)
-    grid, _ = build_stages(tris, params, top_dims)
-    return _optimize(grid, params)
+    return build_spans(tris, params, top_dims)
 
 
 def compact_cells(grid: IrregularGrid, cell_capacity: int) -> IrregularGrid:
@@ -754,29 +886,6 @@ def _pack_tables(grid: IrregularGrid) -> IrregularGrid:
     ref_tris = torch.cat([take(tris.v0, tid), take(tris.e1, tid),
                           take(tris.e2, tid), idb[:, None], pad], dim=1)
     return grid.replace(top_info=top_info, erec=erec, ref_tris=ref_tris)
-
-
-def _optimize(grid: IrregularGrid, params: BuildParams) -> IrregularGrid:
-    # Cheap empty-buddy coalescing first (no ref work), then SAH merges.
-    for _ in range(params.buddy_passes):
-        for axis in range(3):
-            grid = _buddy_pass(grid, axis)
-    for p in range(params.merge_passes):
-        for axis in range(3):
-            grid = _merge_pass(grid, p * 3 + axis + 1, axis,
-                               float(params.alpha))
-    # Compact before expansion: merging kills about half the cells, and
-    # every expansion pass scans all cell rows.
-    if params.compact:
-        n_alive = int(grid.alive.sum())
-        grid = compact_cells(grid, _bucket(n_alive))
-    for p in range(params.expansion_passes):
-        for axis in range(3):
-            # The sort-backed subset test runs on the first pass only;
-            # chains continue through the cheap empty rule.
-            grid = _expand_pass(grid, axis,
-                                subset=params.subset_expansion and p == 0)
-    return _pack_tables(grid)
 
 
 # --------------------------------------------------------------------------

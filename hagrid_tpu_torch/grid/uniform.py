@@ -5,13 +5,18 @@ The build never scatters with atomics: per-triangle voxel-range counts
 are expanded into one row per (triangle, cell) pair, one stable sort by
 cell id makes every cell's refs contiguous, and a histogram plus prefix
 sum gives the segment starts. `dims` and the ref capacity are host
-values; the build reads the device twice (the scene bounds and the ref
-total) and retries with a larger capacity on overflow.
+values. The device work between the host reads is one span, the
+reference's jitted `_build` (`_span`): `build_uniform` runs it op by op,
+a warm `RenderSession` rebuild replays it as a captured graph. The build
+reads the device once for the ref total (retrying with a larger
+capacity on overflow), and once more for the scene bounds when it must
+derive `dims`.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -20,7 +25,7 @@ from ..core.types import Triangles, cross
 from ..ops.segment import (expand_by_counts, segment_starts, sort_pairs,
                            trunc_i32)
 from ..utils.config import density_dims
-from ..utils.graphs import const
+from ..utils.graphs import const, eager
 
 
 @dataclasses.dataclass
@@ -46,8 +51,8 @@ class UniformGrid:
 
     @property
     def cell_size(self) -> torch.Tensor:
-        return (self.bbox_hi - self.bbox_lo) / torch.tensor(
-            self.dims, dtype=torch.float32, device=self.bbox_lo.device)
+        return (self.bbox_hi - self.bbox_lo) / const(
+            self.dims, torch.float32, self.bbox_lo.device)
 
     def overflowed(self) -> bool:
         return int(self.total_refs) > self.ref_ids.shape[0]
@@ -131,21 +136,64 @@ def bin_refs(lo, hi, dims, capacity: int):
     return skeys, srefs, segment_starts(skeys, num_cells), total
 
 
-def scene_box(tris: Triangles):
-    """Host (lo, hi) f32[3] of the scene, padded as the reference pads
-    it; one device read."""
+def scene_bounds(tris: Triangles):
+    """(lo, hi) f32[3] of the scene on its device, padded as the
+    reference pads them on the host, in the same f32 operations."""
     tlo, thi = tris.bounds()
-    lo, hi = torch.stack([tlo.min(0).values,
-                          thi.max(0).values]).cpu().numpy()
+    lo, hi = tlo.min(0).values, thi.max(0).values
     pad = (hi - lo) * 1e-4 + 1e-4
     return lo - pad, hi + pad
+
+
+def scene_box(tris: Triangles):
+    """Host (lo, hi) f32[3] of scene_bounds; one device read."""
+    lo, hi = torch.stack(scene_bounds(tris)).cpu().numpy()
+    return lo, hi
+
+
+def _span(v0, e1, e2, n, dims, capacity):
+    """The reference's `_build`: the scene bounds, the voxel ranges and
+    the binned refs of the triangles (v0, e1, e2, n); returns (bbox_lo,
+    bbox_hi, cell_starts, ref_ids, total)."""
+    tris = Triangles(v0, e1, e2, n)
+    lo, hi = scene_bounds(tris)
+    vlo, vhi = tri_voxel_ranges(tris, lo, hi, dims)
+    _, refs, starts, total = bin_refs(vlo, vhi, dims, capacity)
+    return lo, hi, starts, refs, total
+
+
+def build_spans(tris: Triangles, density: float, ref_capacity=None,
+                dims=None, run=eager) -> UniformGrid:
+    """The build's host side for a non-empty scene: dims (from the
+    bounds, one read, when not given) and the ref capacity, then the span
+    through `run` (utils/graphs.py's `Graphs.call` signature) until the
+    ref total fits."""
+    n = tris.count
+    if dims is None:
+        lo, hi = scene_box(tris)
+        dims = density_dims(hi - lo, n, density)
+    dims = tuple(int(d) for d in dims)
+    if ref_capacity is None:
+        ref_capacity = max(1024, int(n * 4))
+    while True:
+        lo, hi, starts, refs, total = run(
+            "uniform", (n, dims, ref_capacity),
+            functools.partial(_span, dims=dims, capacity=ref_capacity),
+            (tris.v0, tris.e1, tris.e2, tris.n), fresh=False)
+        t = int(total)
+        if t <= ref_capacity:
+            break
+        ref_capacity = int(t * 1.25)
+    return UniformGrid(dims=dims, bbox_lo=lo, bbox_hi=hi, cell_starts=starts,
+                       ref_ids=refs, total_refs=total, tris=tris)
 
 
 def build_uniform(tris: Triangles, density: float = 2.4,
                   ref_capacity: int | None = None,
                   dims: tuple | None = None) -> UniformGrid:
     """Derives dims and the ref capacity on the host, builds on the
-    triangles' device, and retries with room to spare on overflow."""
+    triangles' device op by op, and retries with room to spare on
+    overflow."""
     dev = tris.device
     if tris.count == 0:
         # Degenerate but legal: one empty unit-box cell, every ray misses.
@@ -157,25 +205,7 @@ def build_uniform(tris: Triangles, density: float = 2.4,
             ref_ids=torch.full((1,), -1, dtype=torch.int32, device=dev),
             total_refs=torch.zeros((), dtype=torch.int32, device=dev),
             tris=tris)
-    lo, hi = scene_box(tris)
-    n = tris.count
-    if dims is None:
-        dims = density_dims(hi - lo, n, density)
-    dims = tuple(int(d) for d in dims)
-    if ref_capacity is None:
-        ref_capacity = max(1024, int(n * 4))
-    bbox_lo = torch.as_tensor(lo, dtype=torch.float32, device=dev)
-    bbox_hi = torch.as_tensor(hi, dtype=torch.float32, device=dev)
-    vlo, vhi = tri_voxel_ranges(tris, bbox_lo, bbox_hi, dims)
-    while True:
-        _, refs, starts, total = bin_refs(vlo, vhi, dims, ref_capacity)
-        t = int(total)
-        if t <= ref_capacity:
-            break
-        ref_capacity = int(t * 1.25)
-    return UniformGrid(dims=dims, bbox_lo=bbox_lo, bbox_hi=bbox_hi,
-                       cell_starts=starts, ref_ids=refs, total_refs=total,
-                       tris=tris)
+    return build_spans(tris, density, ref_capacity, dims)
 
 
 def uniform_lookup(grid: UniformGrid, voxel):

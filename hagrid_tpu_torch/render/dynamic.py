@@ -1,10 +1,11 @@
 """Dynamic geometry: per-frame animated meshes with full grid rebuilds
 (port of hagrid_tpu/render/dynamic.py).
 
-The grid is rebuilt every frame for animated scenes. The vertex animation
-is a few elementwise torch ops on the card and the rebuild reuses the
-session's frame-1 capacity and dims, so steady-state frames read nothing
-back to the host.
+The grid is rebuilt every frame for animated scenes. As the reference
+jits `wave_deform`, a frame's deformation and its triangles replay as one
+captured graph on the card, and the rebuild reuses the session's frame-1
+capacity and dims, so steady-state packet frames read nothing back to
+the host.
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ import torch
 
 from ..core.types import Triangles
 from ..device import resolve
+from ..utils.graphs import Graphs
 
 
 def wave_deform(vertices: torch.Tensor, time, amplitude: float = 0.25,
@@ -46,10 +48,26 @@ class AnimatedScene:
         self.faces = torch.as_tensor(faces, dtype=torch.int64,
                                      device=dev).reshape(-1, 3)
         self.deform = deform
+        # The frame's time, filled from the host (no copy from host
+        # memory), and the frame's capture.
+        self._time = torch.zeros((), dtype=torch.float32, device=dev)
+        self._graphs = Graphs()
 
     def frame(self, time: float) -> Triangles:
-        return Triangles.from_mesh(self.deform(self.base_vertices, time),
-                                   self.faces)
+        """deform(base vertices, time) and Triangles.from_mesh as one
+        captured graph on the card (run directly on CPU tensors), keyed on
+        the deform and the base vertices' and faces' addresses; the deform
+        gets the time as a 0-d f32 tensor. Returns fresh tensors."""
+        self._time.fill_(time)
+        base, faces, t, deform = (self.base_vertices, self.faces,
+                                  self._time, self.deform)
+
+        def body():
+            tris = Triangles.from_mesh(deform(base, t), faces)
+            return tris.v0, tris.e1, tris.e2, tris.n
+
+        return Triangles(*self._graphs.call("frame", (deform,), body, (),
+                                            reads=(base, faces, t)))
 
 
 def animate(session, scene: AnimatedScene, times):

@@ -18,8 +18,12 @@ Structures:
 - "uniform": the single-level grid and the same wavefront.
 The wavefront structures read the device once per trace on the card (one
 march kernel launch; on the CPU once per round of the plain version's
-compacted rounds) and a few times per build; they have no budgets to
-calibrate.
+compacted rounds) and where the reference's build reads it; they have no
+budgets to calibrate. As the reference compiles its build stages and
+passes, a warm rebuild replays each span of device work between those
+reads as one captured graph (irregular: four spans, three reads;
+uniform: one span, one read), its tables at fixed addresses that the
+next warm rebuild overwrites.
 """
 
 from __future__ import annotations
@@ -72,8 +76,12 @@ class RenderSession:
     _ovf: dict = dataclasses.field(default_factory=dict)
     # (packet grid, its (lo, hi) as the build computed them on the host).
     _host_bounds: tuple | None = None
-    # The packet paths' captures: ("trace", wave key) and "rebuild".
+    # The captures: the packet paths' ("trace", wave key) and "rebuild";
+    # the irregular build's spans "top", "cells", "merge", "finish"; the
+    # uniform build's "uniform".
     _graphs: Graphs = dataclasses.field(default_factory=Graphs)
+    # The irregular build's ref capacities where its last build ended.
+    _caps: dict = dataclasses.field(default_factory=dict)
 
     @staticmethod
     def create(tris: Triangles, params: BuildParams | None = None,
@@ -105,20 +113,25 @@ class RenderSession:
         graph whose tables stay at fixed addresses (each warm rebuild
         overwrites the previous warm grid's tables); warm uniform
         frames reuse its ref capacity and dims, warm irregular frames its
-        top dims."""
+        top dims, and both replay their build's spans as captured graphs
+        (the tables again at fixed addresses)."""
+        warm = self.grid is not None and tris.count > 0
         if self.structure == "uniform":
-            kw = {}
-            if self.grid is not None:
-                kw = dict(ref_capacity=self.grid.ref_ids.shape[0],
-                          dims=self.grid.dims)
-            self.grid = uniform.build_uniform(
-                tris, density=self.params.snd_density, **kw)
+            density = self.params.snd_density
+            if warm:
+                self.grid = uniform.build_spans(
+                    tris, density, self.grid.ref_ids.shape[0],
+                    self.grid.dims, run=self._graphs.call)
+            else:
+                self.grid = uniform.build_uniform(tris, density=density)
             return self.grid.total_refs
         if self.structure == "irregular":
-            kw = {}
-            if self.grid is not None:
-                kw = dict(top_dims=self.grid.top_dims)
-            self.grid = irregular.build_irregular(tris, self.params, **kw)
+            if warm:
+                self.grid = irregular.build_spans(
+                    tris, self.params, self.grid.top_dims,
+                    run=self._graphs.call, caps=self._caps)
+            else:
+                self.grid = irregular.build_irregular(tris, self.params)
             return self.grid.total_refs
         if self.grid is None:
             self.grid = packet.build_packet(tris, bbox=self.bbox)

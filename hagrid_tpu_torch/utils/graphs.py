@@ -1,10 +1,14 @@
 """Captured CUDA graphs: the port's counterpart of the reference's
-`jax.jit` programs on the packet path (the whole-frame `_frame` of
-hagrid_tpu/ops/sweep_trace.py with its ray layout, and the warm build
-`_build` of hagrid_tpu/grid/packet.py).
+`jax.jit` programs: on the packet path the whole-frame `_frame` of
+hagrid_tpu/ops/sweep_trace.py with its ray layout and the warm build
+`_build` of hagrid_tpu/grid/packet.py; the stages and passes of the
+irregular build (hagrid_tpu/grid/irregular.py:118, 191, 277, 781-785),
+the uniform build's `_build` (grid/uniform.py:122) and `wave_deform`
+(render/dynamic.py:18).
 
 A `Graphs` cache holds one `Captured` body per slot. A body is a function
-of its static input buffers that returns a tuple of tensors:
+of its static input buffers (none, if it reads all it needs in place)
+that returns a tuple of tensors:
 - on the card, its first call copies the caller's tensors into the
   buffers, runs the body once eagerly on a side stream (which loads the
   kernels and makes the constants of `const`), captures it into a
@@ -28,6 +32,7 @@ captures, to that graph's tally; each replay adds the tally again.
 
 from __future__ import annotations
 
+import gc
 import time
 
 import torch
@@ -62,6 +67,12 @@ def const(values, dtype, device) -> torch.Tensor:
     return t
 
 
+def eager(slot, key, body, inputs, reads=(), fresh=True) -> tuple:
+    """`Graphs.call`'s signature, run op by op: body(*inputs) on the
+    caller's tensors, nothing captured or kept."""
+    return tuple(body(*inputs))
+
+
 def _reads_key(reads) -> tuple:
     return tuple((t.data_ptr(), tuple(t.shape), t.dtype) for t in reads)
 
@@ -70,9 +81,10 @@ class Captured:
     """One body with its static input buffers, and on the card its graph
     and the launches the graph holds."""
 
-    def __init__(self, what, body, inputs):
+    def __init__(self, what, body, inputs, device=None):
         self.what = what
         self.body = body
+        self.device = torch.device(device or inputs[0].device)
         self.static = tuple(torch.empty(x.shape, dtype=x.dtype,
                                         device=x.device) for x in inputs)
         self.outputs = None
@@ -91,7 +103,7 @@ class Captured:
                     f"{x.device}, the buffer is {tuple(s.shape)} {s.dtype} "
                     f"on {s.device}")
             s.copy_(x)
-        if self.static[0].device.type != "cuda":
+        if self.device.type != "cuda":
             out = tuple(self.body(*self.static))
             if self.outputs is None:
                 self.outputs = out
@@ -120,6 +132,12 @@ class Captured:
         cur.wait_stream(side)
         graph = torch.cuda.CUDAGraph()
         _tally = {}
+        # No cyclic collection while capturing: one can free tensors whose
+        # release the capture refuses (a failed capture's leftovers did,
+        # in a process that had caught its error); torch.cuda.graph
+        # collects before the capture begins.
+        collecting = gc.isenabled()
+        gc.disable()
         try:
             with torch.cuda.graph(graph):
                 out = tuple(self.body(*self.static))
@@ -131,6 +149,8 @@ class Captured:
                                f"{root}") from e
         finally:
             tally, _tally = _tally, None
+            if collecting:
+                gc.enable()
         self.tally = tuple(tuple(v) for v in tally.values())
         self.graph, self.outputs = graph, out
         graph.replay()
@@ -154,7 +174,8 @@ class Graphs:
         held = self._slots.get(slot)
         if held is None or held[0] != key:
             self._slots.pop(slot, None)
-            cap = Captured((slot, key[0]), body, inputs)
+            cap = Captured((slot, key[0]), body, inputs,
+                           (tuple(inputs) + tuple(reads))[0].device)
             out = cap(inputs)
             self._slots[slot] = (key, cap)
         else:

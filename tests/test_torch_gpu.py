@@ -1199,3 +1199,84 @@ def test_failed_capture_raises_on_card(cuda, monkeypatch):
     monkeypatch.undo()
     hits = s.trace(rays, coherent=True)
     assert (hits.tri_id >= 0).any()
+
+
+def _structure_scene(name, device):
+    """Cornell with its camera, or a 150-triangle soup seen from outside
+    its unit box: (v, f, 64x64 block-order primaries)."""
+    if name == "cornell":
+        v, f = scenes.cornell_box()
+        return v, f, primary_rays(scenes.cornell_camera(), 64, 64,
+                                  order="block", device=device)
+    from hagrid_tpu_torch.core.camera import Camera
+    v, f = scenes.random_soup(150, seed=0)
+    cam = Camera(eye=(0.5, 0.5, 3.0), center=(0.5, 0.5, 0.5), fov_deg=40)
+    return v, f, primary_rays(cam, 64, 64, order="block", device=device)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("structure,params", [
+    ("irregular", BuildParams()), ("irregular", BuildParams.dynamic()),
+    ("uniform", BuildParams())], ids=["irregular", "irregular-dynamic",
+                                      "uniform"])
+@pytest.mark.parametrize("scene", ["cornell", "soup150"])
+def test_graphed_structure_rebuilds_equal_eager_on_card(cuda, scene,
+                                                        structure, params):
+    """RenderSession(structure="irregular" | "uniform") on the card
+    replays its build's spans as captured graphs: warm rebuilds of moved
+    geometry equal build_irregular / build_uniform table by table, bit for
+    bit; a trace on the graphed grid launches the march kernel once and
+    equals the trace on the eager grid."""
+    from hagrid_tpu_torch.ops import wavefront
+    v, f, rays = _structure_scene(scene, cuda)
+    ext = float((v.max(0) - v.min(0)).max())
+    s = RenderSession.create(Triangles.from_mesh(v, f, device=cuda), params,
+                             structure=structure)
+    for frame in range(2):
+        moved = Triangles.from_mesh(
+            v + np.float32(0.003 * ext * (frame + 1)), f, device=cuda)
+        s.rebuild(moved)
+        if structure == "irregular":
+            want = irregular.build_irregular(moved, params,
+                                             top_dims=s.grid.top_dims)
+            fields = _IRREGULAR_TABLES + ("bbox_lo", "bbox_hi")
+        else:
+            want = uniform.build_uniform(
+                moved, ref_capacity=s.grid.ref_ids.shape[0],
+                dims=s.grid.dims)
+            fields = ("cell_starts", "ref_ids", "total_refs", "bbox_lo",
+                      "bbox_hi")
+        for k in fields:
+            got, ref = getattr(s.grid, k), getattr(want, k)
+            if got.dtype == torch.float32:
+                got, ref = got.view(torch.int32), ref.view(torch.int32)
+            assert torch.equal(got, ref), (frame, k)
+        for slot in s._graphs.keys():
+            assert s._graphs.captured(slot).graph is not None, slot
+    before = wavefront.launches["wavefront_march"]
+    hits = s.trace(rays, coherent=True)
+    torch.cuda.synchronize()
+    assert wavefront.launches["wavefront_march"] - before == 1
+    trace = (irregular.trace_irregular_fast if structure == "irregular"
+             else uniform.trace_uniform_fast)
+    _assert_hits_bit_equal(hits, trace(want, rays, coherent=True),
+                           structure)
+    assert (hits.tri_id >= 0).any()
+
+
+@pytest.mark.gpu
+def test_graphed_frame_equals_eager_on_card(cuda):
+    """AnimatedScene.frame on the card replays one graph: bit-equal to
+    wave_deform and Triangles.from_mesh run op by op, frame after
+    frame."""
+    from hagrid_tpu_torch.render.dynamic import wave_deform
+    v, f = scenes.sponza_like(4096)
+    anim = AnimatedScene(v, f, device=cuda)
+    for t in (0.1, 0.2, 0.73):
+        got = anim.frame(t)
+        want = Triangles.from_mesh(wave_deform(anim.base_vertices, t),
+                                   anim.faces)
+        for k in ("v0", "e1", "e2", "n"):
+            assert torch.equal(getattr(got, k).view(torch.int32),
+                               getattr(want, k).view(torch.int32)), (t, k)
+    assert anim._graphs.captured("frame").graph is not None
