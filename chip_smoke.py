@@ -185,7 +185,22 @@ Phases, one line each (any failure exits non-zero before the result):
    bit-equal on every call), each under torch.profiler (device busy,
    idle share, device kernels a call), and each span's graph replayed
    alone (its device time). One JSON line {"compiled_builds": ...}
-   carries the numbers.
+   carries the numbers. In phases 15 and 16 a warm grid kept across the
+   next warm rebuild must still equal its own frame's eager build (the
+   session moves it to storage of its own first), the packet wave keeps
+   its capture, and each warm rebuild is also timed without that copy
+   (the session's path before it: the copy's cost, in the same call);
+17. the bench: `python3 bench_torch.py` (the port's counterpart of
+   bench.py) at its defaults (the Sponza-scale scene, 1024x1024, --iters
+   3) in four processes, one at a time and alone on the card: the packet,
+   irregular and uniform structures with every workload, and the
+   irregular structure's dynamic workload (BuildParams.dynamic()); each
+   must exit 0 with a parseable last line, a value, the card named, no
+   workload or trace overflow, its kernels launched (K2 and K3 for the
+   packet grid, K8 for the wavefront structures) and, for the packet and
+   irregular runs, the hit fraction of phase 4 and phase 12. Each run's
+   line is printed ([bench]), and one JSON line {"bench": ...} carries
+   them.
 The last two lines are the kernels' JSON record and
 {"ok": true, "device": {...}}. Needs a CUDA device; imports no JAX.
 """
@@ -196,6 +211,7 @@ import argparse
 import contextlib
 import dataclasses
 import functools
+import gc
 import itertools
 import json
 import pathlib
@@ -357,6 +373,14 @@ COMPILED_CALLS = 10
 COMPILED_PROFILE_RUNS = 3
 # Phase 16: calls of each timed build path, graphed and eager in turns;
 # frames of each dynamic loop; replays of each span timed alone.
+# Phase 17: the bench's runs (bench_torch.py's flags beyond its defaults)
+# and the time limit of each.
+BENCH_RUNS = {"packet": ["--structure", "packet"],
+              "irregular": ["--structure", "irregular"],
+              "uniform": ["--structure", "uniform"],
+              "irregular dynamic": ["--structure", "irregular",
+                                    "--workload", "dynamic"]}
+BENCH_TIMEOUT_S = 300
 BUILD_CALLS = 10
 BUILD_FRAMES = 5
 SPAN_REPLAYS = 5
@@ -1488,7 +1512,8 @@ def structures_phase(v, tris, rays, card):
     print(f"[structures] phase 12 took {rec['phase_s']:.1f} s", flush=True)
     print(json.dumps({"structures": rec}), flush=True)
     march_rec = dict(launches=sum(launches.values()), march=march,
-                     row_dt=row_dt, census=census, ptxas=ptx)
+                     row_dt=row_dt, census=census, ptxas=ptx,
+                     primary_hit_fraction=irr["primary"]["hit_fraction"])
     return s_irr, wave, s_uni, march_rec
 
 
@@ -2203,6 +2228,19 @@ def graph_of(session, slot):
     return cap
 
 
+def without_copy(session, fn):
+    """fn with the session's warm rebuild as it ran before the session
+    moved the grid it handed out to storage of its own (no device copy):
+    the before side of that copy's cost."""
+    def run():
+        session._detach = lambda: None
+        try:
+            return fn()
+        finally:
+            del session._detach
+    return run
+
+
 def compiled_frame_phase(v, f, tris, rays, cam, card):
     """Phase 15: the packet session's compiled frame. Returns (record,
     the sweep launches of its graphed timed calls)."""
@@ -2221,18 +2259,32 @@ def compiled_frame_phase(v, f, tris, rays, cam, card):
                               bbox_margin=float(0.26 / max(float(ext.min()),
                                                            1e-6)))
     pkey = (False, True, rays.count, None)
+    kept = wave = None
     for step, t in (("cold", None), ("warm 1", 0.1), ("warm 2", 0.2)):
         if t is not None:
             frame_tris = anim.frame(t)
             ds.rebuild(frame_tris)
-            bad = tables_equal(ds.grid, eager_rebuild(ds, frame_tris),
-                               tables)
+            want = eager_rebuild(ds, frame_tris)
+            bad = tables_equal(ds.grid, want, tables)
             check(not bad, f"sequence {step}: graphed rebuild differs in "
                   f"{bad}")
+            if kept is not None:      # the grid of the warm rebuild before
+                bad = tables_equal(*kept, tables)
+                print(f"[compiled] sequence {step}: the grid kept from the "
+                      f"warm rebuild before "
+                      f"{'still bit-equal to' if not bad else 'DIFFERS from'}"
+                      f" its own frame's build_packet", flush=True)
+                check(not bad, f"sequence {step}: the kept warm grid "
+                      f"changed in {bad}")
+            kept = (ds.grid, want) if step == "warm 1" else None
         hits = ds.trace(rays, coherent=True)
         bmax, rowmax = ds._bmax_cal[pkey]
         bits_equal(f"sequence, trace after {step}", hits, trace_sweep(
             ds.grid, rays, coherent=True, bmax=bmax, rowmax=rowmax))
+        if step == "warm 2":
+            check(graph_of(ds, ("trace", pkey)) is wave, "the primary "
+                  "wave was captured again on a warm rebuild")
+        wave = graph_of(ds, ("trace", pkey))
     rec["sequence_captures"] = len(ds._graphs.keys())
 
     # 2. A fresh session on the static scene; every key captured, each
@@ -2341,6 +2393,8 @@ def compiled_frame_phase(v, f, tris, rays, cam, card):
         "path_trace": (path_frame, in_eager(path_frame)),
         "warm rebuild": (lambda: s.rebuild(tris),
                          lambda: eager_rebuild(s, tris)),
+        "warm rebuild, no copy": (without_copy(s, lambda: s.rebuild(tris)),
+                                  lambda: eager_rebuild(s, tris)),
         "dynamic frame": (dyn_graphed, dyn_eager),
     }
     for _ in range(2):      # captures any key still new; then grows and
@@ -2443,6 +2497,7 @@ def build_sequence(name, session, build, frames, fields, force):
     what its frame needs (the span overflows, grows and is captured anew).
     Returns {step: spans captured anew}."""
     out = {}
+    kept = None
     for k, (step, tris) in enumerate(frames):
         if k == len(frames) - 1:
             force(session)
@@ -2453,10 +2508,17 @@ def build_sequence(name, session, build, frames, fields, force):
         anew = sorted(str(k) for k, c in spans_of(session).items()
                       if before.get(k) is not c)
         out[step] = anew
+        old = kept and grid_diff(*kept, fields)
         print(f"[compiled] {name}, {step}: graphed tables against the eager "
               f"build {'bit-equal' if not bad else f'DIFFER in {bad}'}; "
-              f"spans captured anew {anew}", flush=True)
+              f"spans captured anew {anew}"
+              + ("" if kept is None else
+                 f"; the grid kept from the step before "
+                 f"{'still bit-equal to' if not old else 'DIFFERS from'} "
+                 f"its own frame's build"), flush=True)
         check(not bad, f"{name} {step}: the graphed build differs in {bad}")
+        check(not old, f"{name} {step}: the kept warm grid changed in {old}")
+        kept = (session.grid, want)
     return out
 
 
@@ -2618,16 +2680,23 @@ def compiled_builds_phase(v, f, tris, card):
     paths = {}
     for name in ("irregular BuildParams()", "irregular BuildParams.dynamic()"):
         s = sessions[name]
-        paths[f"{name} warm rebuild"] = (
-            functools.partial(rebuilt, s),
-            (lambda s=s: irregular.build_irregular(
-                last, s.params, top_dims=s.grid.top_dims)), irr_fields)
+        eager = (lambda s=s: irregular.build_irregular(
+            last, s.params, top_dims=s.grid.top_dims))
+        paths[f"{name} warm rebuild"] = (functools.partial(rebuilt, s),
+                                         eager, irr_fields)
+        paths[f"{name} warm rebuild, no copy"] = (
+            without_copy(s, functools.partial(rebuilt, s)), eager,
+            irr_fields)
     u = sessions["uniform"]
-    paths["uniform warm rebuild"] = (
-        functools.partial(rebuilt, u),
-        lambda: uniform.build_uniform(last, ref_capacity=u.grid.ref_ids
-                                      .shape[0], dims=u.grid.dims),
-        uni_fields)
+
+    def u_eager():
+        return uniform.build_uniform(last, ref_capacity=u.grid.ref_ids
+                                     .shape[0], dims=u.grid.dims)
+
+    paths["uniform warm rebuild"] = (functools.partial(rebuilt, u), u_eager,
+                                     uni_fields)
+    paths["uniform warm rebuild, no copy"] = (
+        without_copy(u, functools.partial(rebuilt, u)), u_eager, uni_fields)
     frame_t = (0.4 + 0.01 * i for i in itertools.count())
     for name, trace in (("irregular", irregular.trace_irregular_fast),
                         ("uniform", uniform.trace_uniform_fast)):
@@ -2722,16 +2791,26 @@ def max_diff(got, want):
                for a, b in zip(got, want))
 
 
-def timed_pair(what, fn, fn_half, plain, card):
+def timed_pair(what, fn, fn_half, plain, card, rounds=5):
     """Kernel ms at the full block count and at half of it, and the plain
     version's ms (None without `plain`); fails unless full / half lies in
-    1.6-2.4 (a kernel that did only its last block's work would give 1)."""
-    ms = cuda_ms(fn, iters=20, warmup=2)
-    ms_half = cuda_ms(fn_half, iters=20, warmup=2)
+    1.6-2.4 (a kernel that did only its last block's work would give 1).
+    Each time is the median of `rounds` windows of 20 calls, the full and
+    the half windows taken in turn, so that a window the host stalled in
+    (the card idles between launches) or a clock change moves neither the
+    ratio nor the time alone."""
+    fn(), fn_half()
+    full, half = [], []
+    for _ in range(rounds):
+        full.append(cuda_ms(fn, iters=20, warmup=1))
+        half.append(cuda_ms(fn_half, iters=20, warmup=1))
+    ms, ms_half = statistics.median(full), statistics.median(half)
     plain_ms = cuda_ms(plain, iters=1, warmup=0) if plain else None
     ratio = ms / ms_half
     print(f"[micro] {what}: kernel {ms:.4f} ms, at half the blocks "
-          f"{ms_half:.4f} ms (ratio {ratio:.3f})"
+          f"{ms_half:.4f} ms (ratio {ratio:.3f}; medians of {rounds} "
+          f"windows, full {min(full):.4f}-{max(full):.4f}, half "
+          f"{min(half):.4f}-{max(half):.4f})"
           + (f", plain {plain_ms:.3f} ms" if plain else "") + f" ({card})",
           flush=True)
     check(1.6 <= ratio <= 2.4, f"{what}: time at B / time at B/2 = "
@@ -3094,12 +3173,12 @@ def micro_phase(card, dev):
     return list(entries.values())
 
 
-def march_entry(m, ref_launches, lockstep, build_launches):
+def march_entry(m, ref_launches, lockstep, build_launches, bench_launches):
     """The kernels line's wavefront_march entry: the irregular primary
     frame's trace (the main path's first wave), the AO wave's, the path
     bounce's and the uniform frame's beside it, and phase 14's
-    trace_irregular / trace_uniform calls and phase 16's dynamic loops
-    (launches added to phase 12's).
+    trace_irregular / trace_uniform calls, phase 16's dynamic loops and
+    phase 17's bench runs (launches added to phase 12's).
     Every ray is compared bit for bit, so max_abs_err is the largest |dt|
     (0 when equal). No single PyTorch call marches a ray: library_ms is
     null."""
@@ -3113,9 +3192,11 @@ def march_entry(m, ref_launches, lockstep, build_launches):
     return dict(
         name="wavefront_march", route="cuda", source=MARCH_SOURCE,
         replaces=MARCH_REPLACES,
-        launches=m["launches"] + ref_launches + build_launches,
+        launches=m["launches"] + ref_launches + build_launches
+        + bench_launches,
         launches_reference_options=ref_launches,
         launches_compiled_builds=build_launches,
+        launches_bench=bench_launches,
         lockstep_entry_points={
             k: dict(kernel_ms=r["kernel_ms"], plain_ms=r["plain_ms"],
                     plain_rays=r["subset"], bound_ms=r["bound_ms"],
@@ -3146,6 +3227,63 @@ def march_entry(m, ref_launches, lockstep, build_launches):
                                   for k, c in census.items()},
         idle_share={k: c["idle_share"] for k, c in census.items()},
         ptxas=m["ptxas"])
+
+
+def bench_phase(card, packet_hit, irregular_hit):
+    """Phase 17: bench_torch.py at its defaults in BENCH_RUNS' processes,
+    one at a time, alone on the card. Returns (record, the launches of
+    the runs by kernel)."""
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()        # leave the runs the card's memory
+    script = pathlib.Path(__file__).resolve().parent / "bench_torch.py"
+    rec, launches = {"card": card, "runs": {}}, {}
+    for name, flags in BENCH_RUNS.items():
+        t0 = time.perf_counter()
+        try:
+            out = subprocess.run([sys.executable, str(script), *flags],
+                                 capture_output=True, text=True,
+                                 timeout=BENCH_TIMEOUT_S,
+                                 cwd=script.parent)
+        except subprocess.TimeoutExpired as e:
+            check(False, f"bench {name}: no end within {e.timeout} s")
+        secs = time.perf_counter() - t0
+        lines = out.stdout.strip().splitlines()
+        try:
+            line = json.loads(lines[-1])
+        except (IndexError, ValueError):
+            line = None
+        print(f"[bench] {name} ({' '.join(flags)}): rc {out.returncode}, "
+              f"{secs:.1f} s ({card}): {json.dumps(line)}", flush=True)
+        check(line is not None, f"bench {name}: no JSON line; stderr "
+              f"{out.stderr[-2000:]}")
+        check(out.returncode == 0 and line.get("value") is not None,
+              f"bench {name}: rc {out.returncode}, error "
+              f"{line.get('error')}; stderr {out.stderr[-2000:]}")
+        extra = line["extra"]
+        check(extra["device"] == torch.cuda.get_device_name(0),
+              f"bench {name}: ran on {extra['device']}")
+        check(not any(extra["workload_overflow"].values())
+              and not extra["trace_overflow"] and not extra["grid_overflow"],
+              f"bench {name}: overflow {extra['workload_overflow']}")
+        n = extra["launches"]
+        wanted = (("sweep_blocks", "sweep_blocks_anyhit")
+                  if "packet" in flags else ("wavefront_march",))
+        check(all(n[k] > 0 for k in wanted), f"bench {name}: launches {n}")
+        for k, c in n.items():
+            launches[k] = launches.get(k, 0) + c
+        want = {"packet": packet_hit, "irregular": irregular_hit}.get(name)
+        if want is not None:
+            check(extra["hit_fraction"] == round(want, 4),
+                  f"bench {name}: hit fraction {extra['hit_fraction']}, the "
+                  f"smoke run's {want:.4f}")
+        rec["runs"][name] = dict(line=line, rc=out.returncode, seconds=secs)
+    rec["launches"] = launches
+    rec["phase_s"] = time.perf_counter() - t_phase
+    print(f"[bench] phase 17 took {rec['phase_s']:.1f} s", flush=True)
+    print(json.dumps({"bench": rec}), flush=True)
+    return rec, launches
 
 
 def main(profile_path=False, with_variants=False) -> int:
@@ -3329,6 +3467,10 @@ def main(profile_path=False, with_variants=False) -> int:
     # 16. the compiled builds of the paper's structures
     _, build_launches = compiled_builds_phase(v, f, tris, card)
 
+    # 17. the bench, in processes of its own
+    _, bench_launches = bench_phase(card, hit_frac,
+                                    march["primary_hit_fraction"])
+
     # 6. optional device-time breakdown, run last
     if profile_path is not False:
         for what, fn in (("frame", lambda: session.trace(rays, coherent=True)),
@@ -3354,13 +3496,16 @@ def main(profile_path=False, with_variants=False) -> int:
     # phase 8 for any hit, phase 11's records for K4-K7, phase 12 for the
     # march) and phase 14's (launches_reference_options beside it); the
     # dynamic frames' sweep launches ride on the closest-hit entry, phase
-    # 13's (option grids, fine bins) on both sweep entries. No single
-    # PyTorch call computes the sweep: library_ms is null.
+    # 13's (option grids, fine bins) on both sweep entries, and phase 17's
+    # (the bench's processes, counted there from zero) on all three. No
+    # single PyTorch call computes the sweep: library_ms is null.
     kernels = [
         dict(name="sweep_blocks", route="cuda", source=KERNEL_SOURCE,
              replaces=REPLACES,
-             launches=launches + ref_launches["sweep_blocks"],
+             launches=(launches + ref_launches["sweep_blocks"]
+                       + bench_launches["sweep_blocks"]),
              launches_reference_options=ref_launches["sweep_blocks"],
+             launches_bench=bench_launches["sweep_blocks"],
              launches_compiled_frame=comp_launches["sweep_blocks"],
              max_abs_err=max(err, err1, err_r, path["err"], opt_err["k2"],
                              k2_c["max_abs_err"]),
@@ -3383,7 +3528,9 @@ def main(profile_path=False, with_variants=False) -> int:
         dict(name="sweep_blocks_anyhit", route="cuda", source=KERNEL_SOURCE,
              replaces=REPLACES_ANYHIT,
              launches=(slice_launches["sweep_blocks_anyhit"]
-                       + ref_launches["sweep_blocks_anyhit"]),
+                       + ref_launches["sweep_blocks_anyhit"]
+                       + bench_launches["sweep_blocks_anyhit"]),
+             launches_bench=bench_launches["sweep_blocks_anyhit"],
              launches_reference_options=ref_launches["sweep_blocks_anyhit"],
              launches_compiled_frame=comp_launches["sweep_blocks_anyhit"],
              launches_options=opt_launches["sweep_blocks_anyhit"],
@@ -3399,7 +3546,7 @@ def main(profile_path=False, with_variants=False) -> int:
              blocks_dense_incoherent=k3_d["blocks"]),
         *micro_kernels,
         march_entry(march, ref_launches["wavefront_march"], ref_march,
-                    build_launches)]
+                    build_launches, bench_launches["wavefront_march"])]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

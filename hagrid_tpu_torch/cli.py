@@ -128,37 +128,18 @@ def _warn_overflow(session):
               file=sys.stderr)
 
 
-def _median_ms(fn, dev, iters):
-    """Median over `iters` synced calls (after one untimed call): ms
-    between CUDA events on the card, by the host clock elsewhere."""
-    fn()
-    _sync(dev)
-    ts = []
-    for _ in range(iters):
-        if dev.type == "cuda":
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            fn()
-            end.record()
-            end.synchronize()
-            ts.append(start.elapsed_time(end))
-        else:
-            t0 = time.perf_counter()
-            fn()
-            ts.append((time.perf_counter() - t0) * 1e3)
-    return float(np.median(ts))
-
-
 def cmd_bench(args):
     from hagrid_tpu_torch.core.camera import primary_rays
     from hagrid_tpu_torch.device import device_name
+    from hagrid_tpu_torch.utils.profiling import timed
     session, cam, tris = _setup(args)
     dev = tris.device
     w, h = _size(args)
     rays = primary_rays(cam, w, h, order="block", device=dev)
-    build_ms = _median_ms(lambda: session.rebuild(tris), dev, args.iters)
-    trace_ms = _median_ms(lambda: session.trace(rays), dev, args.iters)
+    # Medians over synced calls after one untimed call: ms between CUDA
+    # events on the card, by the host clock elsewhere.
+    build_ms = timed(session.rebuild, tris, iters=args.iters, device=dev) * 1e3
+    trace_ms = timed(session.trace, rays, iters=args.iters, device=dev) * 1e3
     print(json.dumps({
         "scene": args.scene, "tris": tris.count, "rays": w * h,
         "build_ms": round(build_ms, 2),

@@ -18,8 +18,9 @@ Each is given as ms, us per block and ps per ray-ref pair. On the card
 are timed between CUDA events (the reference's host-clock timing of
 blocking calls has no counterpart): the times are the device's, the
 kernel and the wrapper's small torch ops (about the same for all three),
-with no host time between them. A replay does not go through the
-wrappers, so `launches` counts only the captured calls. `skipped_host`
+with no host time between them. The capture counts its launches in a
+tally (utils/graphs.capturing), which each replay adds to the wrappers'
+`launches`, so every launch on the card is counted. `skipped_host`
 times the `skipped` calls back to back between CUDA events without a
 graph, as PR 3's record timed all three: its device work is small, so it
 reads the time the wrapper takes on the host to issue one call.
@@ -41,6 +42,7 @@ import torch
 from ..device import device_name, resolve
 from ..ops.micro_kernels import det_sweep
 from ..ops.sweep_kernel import UNITS_PER_BLOCK, sweep_blocks
+from ..utils import graphs
 from ..utils.profiling import timed
 
 NEVER_DONE = -2**31 + 1   # no ray's bit pattern is <= it: sweep every block
@@ -75,17 +77,21 @@ def synthetic_stream(tile=512, nt=512, blocks_per_tile=8, seed=0,
 def graphed(fn, chain, device):
     """A function that replays `chain` calls of fn captured in one CUDA
     graph (fn is called once first, outside the capture, so that its
-    allocations exist)."""
+    allocations exist) and counts the launches of each replay."""
     side = torch.cuda.Stream(device)
     side.wait_stream(torch.cuda.current_stream(device))
     with torch.cuda.stream(side):
         fn()
     torch.cuda.current_stream(device).wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with graphs.capturing() as tally, torch.cuda.graph(graph):
         for _ in range(chain):
             fn()
-    return graph.replay
+
+    def replay():
+        graph.replay()
+        graphs.add_tally(tally)
+    return replay
 
 
 def run(device=None, tile=512, nt=512, blocks_per_tile=8, seed=0, warmup=2,

@@ -9,6 +9,7 @@ the compiler's output: there is no silent fallback to the Python parser.
 from __future__ import annotations
 
 import ctypes
+import errno
 import hashlib
 import os
 import pathlib
@@ -74,7 +75,10 @@ def load_library():
 
 def load(path: str):
     """Parse `path` -> (verts f32[V,3], faces i32[T,3]); raises when the
-    file cannot be read."""
+    file cannot be read (FileNotFoundError when it does not exist, as
+    the reference's open() does)."""
+    if not os.path.exists(path):
+        raise FileNotFoundError(errno.ENOENT, os.strerror(errno.ENOENT), path)
     lib = load_library()
     nv, nf = ctypes.c_long(), ctypes.c_long()
     handle = lib.obj_load(os.fsencode(path), ctypes.byref(nv),

@@ -46,6 +46,7 @@ import ctypes
 
 import torch
 
+from ..utils.graphs import count_launch
 from . import _build
 from .sweep_kernel import (UNIT_ROWS, UNITS_PER_BLOCK, _check, _empty_out,
                            cuda_launch_args, raise_on)
@@ -59,7 +60,8 @@ _REFS_PER_ROW = 6
 _COEFS = 20
 _ELEMS_PER_CHUNK = 1 << 22   # elements a plain version holds per tensor
 
-# Kernel launches, counted where each kernel is launched.
+# Kernel launches, counted where each kernel is launched (a captured
+# graph's at each replay: utils/graphs.count_launch).
 launches = {"det_sweep": 0, "dots_fp32": 0, "dots_fp32_fma": 0,
             "dots_bf16": 0, "dots_bf16x3": 0}
 
@@ -133,7 +135,7 @@ def det_sweep(xt, cols, gidx, tile_of, tminb, tile):
         tile_of.numel(), _ptr(tminb), *map(_ptr, out), nt, tile,
         _ptr(plan), _stream(xt.device))
     raise_on(lib, err, "det-only sweep")
-    launches["det_sweep"] += 1
+    count_launch(launches, "det_sweep")
     return out
 
 
@@ -338,7 +340,7 @@ def dots_fp32(xt, g, fma=False):
     err = lib.hagrid_dots_fp32(_ptr(xt), _ptr(g), _ptr(out), _ptr(csum),
                                n_blocks, int(fma), _stream(xt.device))
     raise_on(lib, err, "dots_fp32")
-    launches["dots_fp32_fma" if fma else "dots_fp32"] += 1
+    count_launch(launches, "dots_fp32_fma" if fma else "dots_fp32")
     return out, csum
 
 
@@ -385,7 +387,7 @@ def dots_bf16(phi, c, split=False):
     err = lib.hagrid_dots_bf16(_ptr(phi), _ptr(c), _ptr(out), _ptr(csum),
                                n_blocks, int(split), _stream(phi.device))
     raise_on(lib, err, "dots_bf16")
-    launches["dots_bf16x3" if split else "dots_bf16"] += 1
+    count_launch(launches, "dots_bf16x3" if split else "dots_bf16")
     return out, csum
 
 

@@ -414,6 +414,9 @@ def max_march_iters(fine_dims, max_refs_per_cell: int = 0,
 #: What the last `trace` call saw: rays still alive when the safety cap
 #: expired (0 in healthy runs), rounds, and mean marched steps per ray.
 last_trace_stats = {"truncated_rays": 0, "rounds": 0, "mean_steps": 0.0}
+#: Truncated rays summed over every trace since the process began or a
+#: caller zeroed them (a workload of many traces reads it).
+trace_totals = {"truncated_rays": 0}
 
 
 def _hits(best_t, best_id, best_u, best_v) -> Hits:
@@ -485,6 +488,7 @@ def _record(n: int, truncated: int, rounds: int, step_total: int,
     last_trace_stats["truncated_rays"] = truncated
     last_trace_stats["rounds"] = rounds
     last_trace_stats["mean_steps"] = float(step_total) / max(n, 1)
+    trace_totals["truncated_rays"] += truncated
 
 
 def trace_plain(grid, lookup_fn, rays: Rays, refs_per_iter: int = 2,

@@ -22,8 +22,14 @@ compacted rounds) and where the reference's build reads it; they have no
 budgets to calibrate. As the reference compiles its build stages and
 passes, a warm rebuild replays each span of device work between those
 reads as one captured graph (irregular: four spans, three reads;
-uniform: one span, one read), its tables at fixed addresses that the
-next warm rebuild overwrites.
+uniform: one span, one read).
+
+A warm grid's tables are its graphs' output buffers, at fixed addresses,
+so that the waves that read them in place keep their captures. As the
+reference builds a new grid every frame, a grid the session handed out
+stays that frame's: just before a warm rebuild replays over the buffers,
+the session moves the grid it handed out last to storage of its own (one
+device copy of its tables), and the new grid takes the buffers.
 """
 
 from __future__ import annotations
@@ -108,14 +114,17 @@ class RenderSession:
         return s
 
     def rebuild(self, tris: Triangles):
-        """Per-frame rebuild. Warm packet frames reuse frame 1's capacity
+        """Per-frame rebuild; returns the new grid's ref total (a 0-d
+        tensor of its own). Warm packet frames reuse frame 1's capacity
         and dims and run with no host synchronisation, as one captured
-        graph whose tables stay at fixed addresses (each warm rebuild
-        overwrites the previous warm grid's tables); warm uniform
-        frames reuse its ref capacity and dims, warm irregular frames its
-        top dims, and both replay their build's spans as captured graphs
-        (the tables again at fixed addresses)."""
+        graph; warm uniform frames reuse its ref capacity and dims, warm
+        irregular frames its top dims, and both replay their build's
+        spans as captured graphs. A warm grid's tables are the graphs'
+        buffers; the grid handed out before it moves to storage of its
+        own first (_detach), so a grid a caller kept stays its frame's."""
         warm = self.grid is not None and tris.count > 0
+        if warm:
+            self._detach()
         if self.structure == "uniform":
             density = self.params.snd_density
             if warm:
@@ -124,7 +133,7 @@ class RenderSession:
                     self.grid.dims, run=self._graphs.call)
             else:
                 self.grid = uniform.build_uniform(tris, density=density)
-            return self.grid.total_refs
+            return self.grid.total_refs.clone()
         if self.structure == "irregular":
             if warm:
                 self.grid = irregular.build_spans(
@@ -132,7 +141,7 @@ class RenderSession:
                     run=self._graphs.call, caps=self._caps)
             else:
                 self.grid = irregular.build_irregular(tris, self.params)
-            return self.grid.total_refs
+            return self.grid.total_refs.clone()
         if self.grid is None:
             self.grid = packet.build_packet(tris, bbox=self.bbox)
         else:
@@ -144,7 +153,18 @@ class RenderSession:
         else:
             bounds = packet.padded_bounds(*self.bbox)
         self._host_bounds = (self.grid, bounds) if tris.count else None
-        return self.grid.total_refs
+        return self.grid.total_refs.clone()
+
+    def _detach(self):
+        """Move each table of the current grid that lies in a capture's
+        buffers to storage of its own (a device copy, in place on the
+        grid object the caller may hold), before a warm rebuild replays
+        over the buffers; a cold grid has none there."""
+        g, held = self.grid, self._graphs.buffers()
+        for f in dataclasses.fields(g):
+            x = getattr(g, f.name)
+            if torch.is_tensor(x) and x.untyped_storage().data_ptr() in held:
+                setattr(g, f.name, x.clone())
 
     def _warm_packet(self, tris: Triangles):
         """build_packet at the grid's capacity and dims with check=False,
@@ -208,7 +228,10 @@ class RenderSession:
                                               device=dev)
         if key not in self._ovf:
             self._ovf[key] = torch.zeros((), dtype=torch.bool, device=dev)
-        grid, flag, total = self.grid, self._ovf[key], self.trace_overflow
+        # The body holds a copy of the grid object: _detach moves the
+        # tables of the session's grid object, not the buffers it reads.
+        grid = dataclasses.replace(self.grid)
+        flag, total = self._ovf[key], self.trace_overflow
 
         def body(org, dir, tmin, tmax):
             hits, ovf, _, _ = trace_frame(

@@ -18,7 +18,9 @@ that returns a tuple of tensors:
   on them directly, with no capture.
 Either way the outputs live at fixed addresses that each call
 overwrites: `Graphs.call` hands out fresh copies unless asked for the
-buffers themselves.
+buffers themselves. A caller that hands such buffers on (a session's
+warm grid) moves what it handed out to storage of its own before the
+next call overwrites them (`Graphs.buffers` finds the tensors to move).
 
 A key holds the body's static arguments and (data_ptr, shape, dtype) of
 every tensor the body reads in place instead of copying, so a table at
@@ -27,11 +29,14 @@ key at a time.
 
 Kernel launches are counted where they happen: a wrapper calls
 `count_launch`, which adds to its counter at once, or, while a graph
-captures, to that graph's tally; each replay adds the tally again.
+captures (`capturing`, for a `Captured` body or a graph captured
+elsewhere), to that graph's tally; each replay adds the tally again
+(`add_tally`).
 """
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import time
 
@@ -52,6 +57,37 @@ def count_launch(counter: dict, name: str):
         return
     entry = _tally.setdefault((id(counter), name), [counter, name, 0])
     entry[2] += 1
+
+
+@contextlib.contextmanager
+def capturing():
+    """The block is a graph's capture: the launches counted inside it go
+    to a tally, which the block yields (a list, filled with (counter,
+    name, n) when the block ends) for `add_tally` at each replay; no
+    cyclic collection runs meanwhile (one can free tensors whose release
+    the capture refuses: a failed capture's leftovers did, in a process
+    that had caught its error; torch.cuda.graph collects before the
+    capture begins)."""
+    global _tally
+    if _tally is not None:
+        raise RuntimeError("a capture is already in progress")
+    tally = []
+    _tally = {}
+    collecting = gc.isenabled()
+    gc.disable()
+    try:
+        yield tally
+    finally:
+        tally.extend(tuple(v) for v in _tally.values())
+        _tally = None
+        if collecting:
+            gc.enable()
+
+
+def add_tally(tally):
+    """One replay of a graph whose capture counted `tally`."""
+    for counter, name, n in tally:
+        counter[name] += n
 
 
 def const(values, dtype, device) -> torch.Tensor:
@@ -118,11 +154,9 @@ class Captured:
         return self.outputs
 
     def _count(self):
-        for counter, name, n in self.tally:
-            counter[name] += n
+        add_tally(self.tally)
 
     def _capture(self):
-        global _tally
         t0 = time.perf_counter()
         cur = torch.cuda.current_stream()
         side = torch.cuda.Stream()
@@ -131,15 +165,8 @@ class Captured:
             self.body(*self.static)
         cur.wait_stream(side)
         graph = torch.cuda.CUDAGraph()
-        _tally = {}
-        # No cyclic collection while capturing: one can free tensors whose
-        # release the capture refuses (a failed capture's leftovers did,
-        # in a process that had caught its error); torch.cuda.graph
-        # collects before the capture begins.
-        collecting = gc.isenabled()
-        gc.disable()
         try:
-            with torch.cuda.graph(graph):
+            with capturing() as tally, torch.cuda.graph(graph):
                 out = tuple(self.body(*self.static))
         except RuntimeError as e:
             root = e
@@ -147,11 +174,7 @@ class Captured:
                 root = root.__context__
             raise RuntimeError(f"capture of {self.what} failed: "
                                f"{root}") from e
-        finally:
-            tally, _tally = _tally, None
-            if collecting:
-                gc.enable()
-        self.tally = tuple(tuple(v) for v in tally.values())
+        self.tally = tuple(tally)
         self.graph, self.outputs = graph, out
         graph.replay()
         self._count()
@@ -181,6 +204,13 @@ class Graphs:
         else:
             out = held[1](inputs)
         return tuple(o.clone() for o in out) if fresh else out
+
+    def buffers(self) -> set:
+        """The storage addresses of every capture's input and output
+        buffers, which the capture's next call overwrites."""
+        return {b.untyped_storage().data_ptr()
+                for _, cap in self._slots.values()
+                for b in cap.static + (cap.outputs or ())}
 
     def drop(self, slot):
         """Forget the slot's capture (and free its graph's memory)."""

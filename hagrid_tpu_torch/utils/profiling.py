@@ -2,7 +2,9 @@
 
 On the card, times come from CUDA events (PyTorch returns before the
 device has finished, so a host clock alone would time the enqueue); on
-the CPU from the host clock. `device_trace` wraps `torch.profiler`.
+the CPU from the host clock. `time_runs` keeps both for the benches
+(bench_torch.py), `timed` its median. `device_trace` wraps
+`torch.profiler`.
 """
 
 from __future__ import annotations
@@ -20,9 +22,13 @@ def _on_card(device) -> bool:
 
 
 class _Clock:
-    """Seconds between start() and stop() of work on `device`."""
+    """Seconds between start() and stop() of work on `device`: between
+    CUDA events on the card, by the host clock elsewhere. stop() waits
+    for the card (torch.cuda.synchronize) and leaves in `wall` the host
+    clock's seconds of the same span."""
 
     def __init__(self, device):
+        self.device = device
         self.card = _on_card(device)
 
     def start(self):
@@ -30,15 +36,16 @@ class _Clock:
             self.t0 = torch.cuda.Event(enable_timing=True)
             self.t1 = torch.cuda.Event(enable_timing=True)
             self.t0.record()
-        else:
-            self.t0 = time.perf_counter()
+        self.h0 = time.perf_counter()
 
     def stop(self) -> float:
         if self.card:
             self.t1.record()
-            self.t1.synchronize()
+            torch.cuda.synchronize(self.device)
+        self.wall = time.perf_counter() - self.h0
+        if self.card:
             return self.t0.elapsed_time(self.t1) * 1e-3
-        return time.perf_counter() - self.t0
+        return self.wall
 
 
 def _block(x):
@@ -85,25 +92,45 @@ class StageTimer:
         return "\n".join(lines)
 
 
-def timed(fn, *args, warmup: int = 1, iters: int = 5, chain: int = 1,
-          device=None, **kw) -> float:
-    """Median seconds per call of fn(*args, **kw) over `iters` timings
-    after `warmup` untimed calls. A timing spans `chain` back-to-back
-    calls (so that a short kernel's launch latency overlaps the previous
-    call's run): between two CUDA events for device="cuda", on the host
-    clock otherwise."""
+def time_runs(fn, *args, warmup: int = 1, iters: int = 5, chain: int = 1,
+              device=None, **kw) -> dict:
+    """fn(*args, **kw) timed over `iters` runs after `warmup` untimed
+    calls. A run spans `chain` back-to-back calls (so that a short
+    kernel's launch latency overlaps the previous call's run) and one
+    synchronisation. Returns the seconds a call of each run on both
+    clocks: {"seconds": [...], between CUDA events for device="cuda",
+    on the host clock otherwise; "wall": [...], the host clock from a
+    synchronised start to the synchronisation after the run}."""
     for _ in range(warmup):
         fn(*args, **kw)
     if _on_card(device):
         torch.cuda.synchronize(device)
     clock = _Clock(device)
-    ts = []
+    secs, wall = [], []
     for _ in range(iters):
         clock.start()
         for _ in range(chain):
             fn(*args, **kw)
-        ts.append(clock.stop() / chain)
-    return float(statistics.median(ts))
+        secs.append(clock.stop() / chain)
+        wall.append(clock.wall / chain)
+    return {"seconds": secs, "wall": wall}
+
+
+def timed(fn, *args, warmup: int = 1, iters: int = 5, chain: int = 1,
+          device=None, **kw) -> float:
+    """Median seconds a call of `time_runs`'s runs (CUDA events on the
+    card, the host clock otherwise)."""
+    return float(statistics.median(time_runs(
+        fn, *args, warmup=warmup, iters=iters, chain=chain, device=device,
+        **kw)["seconds"]))
+
+
+def spread(ms) -> dict | None:
+    """median, min and max of a list of times (None for None)."""
+    if ms is None:
+        return None
+    return {"median": float(statistics.median(ms)), "min": float(min(ms)),
+            "max": float(max(ms)), "runs": len(ms)}
 
 
 @contextlib.contextmanager

@@ -436,3 +436,17 @@ def test_profiling_helpers_on_cpu():
     with profiling.device_trace() as prof:
         work(1000)
     assert any("sum" in e.key for e in prof.key_averages())
+
+
+def test_time_runs_keeps_each_run_on_both_clocks():
+    """time_runs: one entry a run on each clock, per call of its chain
+    (off the card both are the host clock's); timed is their median."""
+    calls = []
+    t = profiling.time_runs(lambda n: calls.append(n), 7, warmup=1, iters=4,
+                            chain=3, device="cpu")
+    assert calls == [7] * (1 + 4 * 3)
+    assert len(t["seconds"]) == len(t["wall"]) == 4
+    assert t["seconds"] == t["wall"] and all(x > 0 for x in t["wall"])
+    s = profiling.spread([3.0, 1.0, 2.0])
+    assert s == {"median": 2.0, "min": 1.0, "max": 3.0, "runs": 3}
+    assert profiling.spread(None) is None

@@ -11,6 +11,7 @@ a capture also makes) on any op that a stream capture on the card
 refuses, and it catches a read planted in a body.
 """
 
+import gc
 import sys
 
 import numpy as np
@@ -218,6 +219,41 @@ def test_new_grid_address_gets_new_key(cornell):
     assert len(s._graphs.keys()) == 2       # the wave and the rebuild
 
 
+def test_warm_rebuilds_keep_every_wave_capture(cornell):
+    """After the first warm rebuild, two more: each wave's capture (a
+    coherent closest-hit wave and an incoherent any-hit wave) and the
+    rebuild's stay the same objects under the same keys, though each
+    rebuild moves the grid before it to storage of its own; each wave
+    still equals trace_sweep on the current grid."""
+    c = cornell
+    v, f = c["v"], c["f"]
+    s = RenderSession.create(Triangles.from_mesh(v, f, device=CPU), verts=v,
+                             bbox_margin=0.05)
+    slots = ("rebuild", ("trace", PRIMARY), ("trace", ANYHIT))
+    seen = None
+    for shift in (1.0, 3.0, -2.0):
+        before = s.grid
+        s.rebuild(Triangles.from_mesh((v + np.float32(shift)).astype(
+            np.float32), f, device=CPU))
+        held = s._graphs.buffers()
+        assert seen is None or not any(
+            getattr(before, k).untyped_storage().data_ptr() in held
+            for k in ("rs", "rowinfo", "cols", "planes", "total_refs"))
+        for key in (PRIMARY, ANYHIT):
+            rays, kw = _wave(c, key)
+            got = s.trace(rays, **kw)
+            bmax, rowmax = s._bmax_cal[key]
+            want = sweep_trace.trace_sweep(
+                s.grid, rays, bmax=bmax, rowmax=rowmax,
+                **{k: x for k, x in kw.items() if k != "cal_key"})
+            assert torch.equal(got.tri_id, want.tri_id), (shift, key)
+        now = ({k: s._graphs.keys()[k] for k in slots},
+               [s._graphs.captured(k) for k in slots])
+        assert seen is None or (now[0] == seen[0] and all(
+            a is b for a, b in zip(now[1], seen[1]))), shift
+        seen = now
+
+
 class _CaptureGuard(TorchDispatchMode):
     """Records what a stream capture on the card would refuse: reading a
     tensor's value on the host, a tensor made from host data that an op
@@ -318,6 +354,31 @@ def test_launches_count_each_replay():
     cap._count()
     cap._count()
     assert counter["k"] == 5
+
+
+def test_capturing_tallies_a_graph_captured_elsewhere():
+    """graphs.capturing, as exp/kernel_mt20.graphed wraps a graph captured
+    outside a Graphs slot: the launches counted inside the block go to
+    its tally and not to the counters, each add_tally (one a replay)
+    adds the tally again, the cyclic collector is off inside the block
+    and back after it, and a capture inside a capture raises."""
+    counter = {"a": 0, "b": 0}
+    collecting = gc.isenabled()
+    with graphs.capturing() as tally:
+        assert not gc.isenabled()
+        for _ in range(4):
+            graphs.count_launch(counter, "a")
+        graphs.count_launch(counter, "b")
+        with pytest.raises(RuntimeError), graphs.capturing():
+            pass
+    assert gc.isenabled() == collecting
+    assert counter == {"a": 0, "b": 0}
+    assert sorted((name, n) for _, name, n in tally) == [("a", 4), ("b", 1)]
+    for _ in range(3):
+        graphs.add_tally(tally)
+    assert counter == {"a": 12, "b": 3}
+    graphs.count_launch(counter, "a")
+    assert counter["a"] == 13
 
 
 def test_buffers_refuse_other_inputs():

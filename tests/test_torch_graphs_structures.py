@@ -3,7 +3,8 @@
 render/dynamic.py): the irregular and uniform sessions' warm rebuilds,
 whose spans of device work replay as graphs on the card and run here on
 CPU tensors through the same static-buffer path, and AnimatedScene's
-frame.
+frame; and, for all three structures, a warm grid that a caller keeps,
+which the next warm rebuild must leave as its frame's grid.
 
 The same numpy meshes, deformed by the JAX package's wave_deform, go
 through both packages (so that an ulp of the deform cannot move a
@@ -23,18 +24,20 @@ import pytest
 import torch
 from test_sweep_trace import _check as check_hits
 from test_torch_graphs import _guarded
+from test_torch_packet import assert_grids_equal
 from test_torch_uniform import _Reads
 
 from hagrid_tpu import scenes as j_scenes
 from hagrid_tpu.core.camera import primary_rays as j_primary_rays
 from hagrid_tpu.core.types import Triangles as JTris
 from hagrid_tpu.grid import irregular as j_irr
+from hagrid_tpu.grid.packet import build_packet as j_build_packet
 from hagrid_tpu.grid import uniform as j_uniform
 from hagrid_tpu.render import dynamic as j_dynamic
 from hagrid_tpu.utils.config import BuildParams as JParams
 from hagrid_tpu_torch import interop
 from hagrid_tpu_torch.core.types import Triangles
-from hagrid_tpu_torch.grid import irregular, uniform
+from hagrid_tpu_torch.grid import irregular, packet, uniform
 from hagrid_tpu_torch.render import dynamic
 from hagrid_tpu_torch.render.session import RenderSession
 from hagrid_tpu_torch.utils.config import BuildParams
@@ -51,6 +54,8 @@ IRREGULAR = ("top_res_log", "top_offset", "entries", "cell_min", "cell_max",
              "erec", "num_entries", "total_refs", "bbox_lo", "bbox_hi",
              "ref_tris")
 UNIFORM = ("cell_starts", "ref_ids", "total_refs", "bbox_lo", "bbox_hi")
+PACKET = ("rs", "rowinfo", "cols", "planes", "total_refs", "total_pairs",
+          "bbox_lo", "bbox_hi")
 
 
 def _mesh(scene):
@@ -287,3 +292,69 @@ def test_trace_on_graphed_grid_matches_reference(structure):
                                      dims=s.grid.dims)
         want = j_uniform.trace_uniform_fast(jg, jr)
     check_hits(s.trace(rays, coherent=True), want)
+
+
+def _eager_build(structure, s, tris):
+    """The port's eager build of `tris` at the session's capacity and
+    dims, and the JAX package's of the same vertices `v` (a function of
+    v, f); the fields to compare."""
+    g = s.grid
+    if structure == "packet":
+        cap, dims3, bbox = g.ref_capacity, g.dims3, s.bbox
+        return (packet.build_packet(tris, bbox=bbox, ref_capacity=cap,
+                                    dims3=dims3, check=False),
+                lambda v, f: j_build_packet(JTris.from_mesh(v, f),
+                                            ref_capacity=cap, dims3=dims3,
+                                            bbox=bbox, check=False),
+                PACKET)
+    if structure == "irregular":
+        top = g.top_dims
+        return (irregular.build_irregular(tris, BuildParams(), top_dims=top),
+                lambda v, f: j_irr.build_irregular(JTris.from_mesh(v, f),
+                                                   JParams(), top_dims=top),
+                IRREGULAR)
+    cap, dims = g.ref_ids.shape[0], g.dims
+    return (uniform.build_uniform(tris, ref_capacity=cap, dims=dims),
+            lambda v, f: j_uniform.build_uniform(JTris.from_mesh(v, f),
+                                                 ref_capacity=cap, dims=dims),
+            UNIFORM)
+
+
+@pytest.mark.parametrize("structure", ["packet", "irregular", "uniform"])
+def test_kept_warm_grid_stays_its_frame(structure):
+    """A grid kept from the warm rebuild at t = 0.1 and the ref total
+    that rebuild returned, after a warm rebuild at t = 0.2: still the
+    t = 0.1 frame's, table by table against the JAX package's build of
+    that frame at the session's capacity and dims (packet:
+    assert_grids_equal, `overflowed` included) and bit for bit against
+    the port's eager build; the new grid is the t = 0.2 frame's and
+    keeps the buffers' addresses."""
+    v, f = _mesh("cornell")
+    kw = WAVES["cornell"]
+    anim = dynamic.AnimatedScene(v, f, device=CPU, deform=functools.partial(
+        dynamic.wave_deform, **kw))
+    ext = v.max(0) - v.min(0)
+    s = RenderSession.create(anim.frame(0.0), structure=structure, verts=v,
+                             bbox_margin=(kw["amplitude"] + 1) / ext.min())
+    tris = anim.frame(0.1)
+    n = s.rebuild(tris)
+    g = s.grid
+    eager, reference, fields = _eager_build(structure, s, tris)
+    v1 = dynamic.wave_deform(anim.base_vertices, 0.1, **kw).numpy()
+    assert not _differ(g, eager, fields)
+    kept = {k: getattr(g, k).clone() for k in fields}
+    ptrs = [getattr(g, k).data_ptr() for k in fields]
+    s.rebuild(anim.frame(0.2))
+    assert s.grid is not g
+    assert [getattr(s.grid, k).data_ptr() for k in fields] == ptrs
+    assert _differ(s.grid, eager, fields), "t = 0.2 built the same grid"
+    assert not _differ(g, eager, fields)
+    assert all(torch.equal(getattr(g, k), t) for k, t in kept.items())
+    jg = reference(v1, f)
+    if structure == "packet":
+        assert_grids_equal(g, jg)
+        assert bool(g.overflowed) == bool(eager.overflowed)
+    else:
+        assert not _differ(g, jg, fields)
+    assert int(n) == int(eager.total_refs) == int(np.asarray(jg.total_refs))
+    assert g.tris is tris

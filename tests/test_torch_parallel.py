@@ -146,6 +146,11 @@ _WORKER = textwrap.dedent("""
                          for k in ("tri_id", "t", "u", "v")})
     else:
         assert full is None
+    # Leave together and tear the group down before exit: a rank whose
+    # peer has gone can abort in gloo's threads at interpreter shutdown.
+    import torch.distributed as dist
+    dist.barrier()
+    dist.destroy_process_group()
     """)
 
 
