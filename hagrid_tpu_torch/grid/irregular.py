@@ -39,6 +39,7 @@ from ..core.types import Triangles
 from ..ops.segment import (add_at_drop, compact_indices, cumsum_i32,
                            exclusive_scan, expand_by_counts, rows_to_segments,
                            segment_starts, sort_pairs, take)
+from ..utils import profiling
 from ..utils.config import BuildParams, density_dims
 from ..utils.graphs import const, eager
 from .uniform import (bin_refs, linear_cell, scene_bounds, scene_box,
@@ -739,6 +740,14 @@ def _span_finish(a, c, top_dims, levels, params, cell_cap):
     return tuple(getattr(grid, k) for k in _CELLS + _PACKED)
 
 
+def _read(fn):
+    """One of the build's host reads, fn(): span "read.build" and counter
+    "host_reads.build" (utils/profiling.py)."""
+    profiling.count("host_reads.build")
+    with profiling.span("read.build"):
+        return fn()
+
+
 def _top_and_cells(tris, params, top_dims, run, caps):
     """Spans A and B with their reads: (a, b, top_dims, levels)."""
     n = tris.count
@@ -758,7 +767,7 @@ def _top_and_cells(tris, params, top_dims, run, caps):
                                   levels=levels, params=params,
                                   rt_cap=rt_cap),
                 (tris.v0, tris.e1, tris.e2, tris.n), fresh=False)
-        t, e_total = a[-1].tolist()
+        t, e_total = _read(a[-1].tolist)
         if t <= rt_cap:
             break
         rt_cap = _bucket(int(t * 1.25))
@@ -774,7 +783,7 @@ def _top_and_cells(tris, params, top_dims, run, caps):
                 functools.partial(_span_cells, a, top_dims=top_dims,
                                   levels=levels, e_cap=e_cap, r2_cap=r2_cap),
                 (), reads=a, fresh=False)
-        t2 = int(b[-1])
+        t2 = _read(b[-1].item)
         want = first if t2 <= first else _bucket(int(t2 * 1.25))
         if want == r2_cap:
             break
@@ -821,7 +830,7 @@ def build_spans(tris: Triangles, params: BuildParams,
             functools.partial(_span_merge, a, b, top_dims=top_dims,
                               levels=levels, params=params),
             (), reads=a + b, fresh=False)
-    cell_cap = _cell_capacity(int(c[-1])) if params.compact else None
+    cell_cap = _cell_capacity(_read(c[-1].item)) if params.compact else None
     d = run("finish", (top_dims, levels, params, cell_cap),
             functools.partial(_span_finish, a, c, top_dims=top_dims,
                               levels=levels, params=params,

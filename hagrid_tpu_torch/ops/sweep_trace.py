@@ -22,6 +22,11 @@ tiles of `tile` rays. Each round:
    closest hit or any hit;
 4. `_merge` (torch): fold the round's hits into the running best.
 
+With tracing on (utils/profiling.py) the frame opens spans
+"sweep.layout" (the ray layout and the per-tile precompute), and each
+round "sweep.plan" (steps 1-2), "sweep.kernel" (3) and "sweep.merge"
+(4); inside a session's captured graph they are its event nodes.
+
 The whole frame runs with no host read: budgets (`bcaps`) are static per
 round and overflow is a device flag. Out-of-range semantics differ from
 JAX's (see ops/segment.py): every f32 -> i32 cast goes through
@@ -40,6 +45,7 @@ import torch
 from ..core.types import Hits, Rays
 from ..grid.packet import BIG as _BIG
 from ..grid.packet import PacketGrid, rays_to_x
+from ..utils import profiling
 from ..utils.graphs import const
 from .segment import add_at_drop, cumsum_i32, expand_by_counts, trunc_i32
 from .sweep_kernel import UNIT_ROWS, UNITS_PER_BLOCK, sweep_blocks
@@ -752,19 +758,20 @@ class _Frame:
         self.tile = tile
         self.dims3 = grid.dims3
         self.rs, self.rowinfo, self.cols = grid.rs, grid.rowinfo, grid.cols
-        if coherent:
-            self.xp_ext, self.xt_ext = _pad_coherent(
-                rays.org, rays.dir, rays.tmin, rays.tmax, n_pad, tile)
-            self.inv = None
-        else:
-            self.xp_ext, self.xt_ext, self.inv = _bin_rays(
-                rays.org, rays.dir, rays.tmin, rays.tmax, n_pad, tile,
-                fine=fine_bins)
-        self.nt = n_pad // tile
-        self.tabs = _tile_tabs(grid.bbox_lo, grid.bbox_hi, grid.dims3)
-        self.per_ray, self.per_tile = _precompute(
-            self.xp_ext[:n_pad], *self.tabs, grid.bbox_lo, grid.bbox_hi,
-            tile, grid.planes)
+        with profiling.span("sweep.layout"):
+            if coherent:
+                self.xp_ext, self.xt_ext = _pad_coherent(
+                    rays.org, rays.dir, rays.tmin, rays.tmax, n_pad, tile)
+                self.inv = None
+            else:
+                self.xp_ext, self.xt_ext, self.inv = _bin_rays(
+                    rays.org, rays.dir, rays.tmin, rays.tmax, n_pad, tile,
+                    fine=fine_bins)
+            self.nt = n_pad // tile
+            self.tabs = _tile_tabs(grid.bbox_lo, grid.bbox_hi, grid.dims3)
+            self.per_ray, self.per_tile = _precompute(
+                self.xp_ext[:n_pad], *self.tabs, grid.bbox_lo, grid.bbox_hi,
+                tile, grid.planes)
         # Gather units are 4-row slices of cols; the zero tail rows form
         # exactly the last unit, the dead gather target.
         self.dead_idx = grid.cols.shape[0] // _U - 1
@@ -819,16 +826,19 @@ class _Frame:
         demand_max = torch.zeros((), dtype=torch.int32, device=dev)
         rows_max = torch.zeros((), dtype=torch.int32, device=dev)
         for r, bcap in enumerate(bcaps):
-            xt_round, gidx, tile_of, tminb, demand, row_ovf, rows = \
-                self.stream(best[0], ka, slab, bcap, rmax, any_hit,
-                            None if rowcaps is None else rowcaps[r])
+            with profiling.span("sweep.plan"):
+                xt_round, gidx, tile_of, tminb, demand, row_ovf, rows = \
+                    self.stream(best[0], ka, slab, bcap, rmax, any_hit,
+                                None if rowcaps is None else rowcaps[r])
             overflow = overflow | row_ovf | (demand > bcap * _UPB)
             demand_max = torch.maximum(
                 demand_max, torch.div(demand, _UPB, rounding_mode="floor"))
             rows_max = torch.maximum(rows_max, rows)
-            out = sweep_blocks(xt_round, self.cols, gidx, tile_of, tminb,
-                               self.tile, any_hit=any_hit)
-            best = _merge(best, out, tile_of)
+            with profiling.span("sweep.kernel"):
+                out = sweep_blocks(xt_round, self.cols, gidx, tile_of, tminb,
+                                   self.tile, any_hit=any_hit)
+            with profiling.span("sweep.merge"):
+                best = _merge(best, out, tile_of)
             ka = ka + step * slab
         return best, overflow, demand_max, rows_max
 

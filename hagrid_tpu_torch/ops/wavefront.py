@@ -42,6 +42,7 @@ import torch
 
 from ..core.intersect import moller_trumbore, safe_inv_dir, slab_test
 from ..core.types import Hits, Rays
+from ..utils import profiling
 from . import _build
 from .segment import take, trunc_i32
 
@@ -489,6 +490,8 @@ def _record(n: int, truncated: int, rounds: int, step_total: int,
     last_trace_stats["rounds"] = rounds
     last_trace_stats["mean_steps"] = float(step_total) / max(n, 1)
     trace_totals["truncated_rays"] += truncated
+    profiling.count("march.steps", step_total)
+    profiling.count("march.rays", n)
 
 
 def trace_plain(grid, lookup_fn, rays: Rays, refs_per_iter: int = 2,
@@ -560,21 +563,27 @@ def trace(grid, lookup_fn, rays: Rays, refs_per_iter: int = 2,
     work: optional int64[5] on the card (zeroed), to which the kernel adds
     the refs it tested, the rows it gathered, the cell exits it computed,
     the cells it fetched and its warp iterations; the plain version counts
-    no work."""
+    no work.
+    With tracing on (utils/profiling.py): span "march" around the launch
+    (the plain version on the CPU), span "read.march" around the read,
+    counters "march.steps" and "march.rays" from what the read returns."""
     dev = rays.org.device
     if dev.type == "cpu":
         if work is not None:
             raise ValueError("the plain version counts no work")
-        return trace_plain(grid, lookup_fn, rays, refs_per_iter, any_hit,
-                           round_iters, min_batch, steps=steps)
+        with profiling.span("march"):
+            return trace_plain(grid, lookup_fn, rays, refs_per_iter,
+                               any_hit, round_iters, min_batch, steps=steps)
     mode, args, outs, stats, _keep = march_args(
         grid, lookup_fn, rays, refs_per_iter, refill=REFILL[bool(coherent)],
         steps=steps, work=work)
     if args.n:
-        launch_march(mode, args, any_hit,
-                     torch.cuda.current_stream(dev).cuda_stream)
+        with profiling.span("march"):
+            launch_march(mode, args, any_hit,
+                         torch.cuda.current_stream(dev).cuda_stream)
         launches["wavefront_march"] += 1
-        truncated, step_total, hard_cap = stats[1:].tolist()
+        with profiling.span("read.march"):
+            truncated, step_total, hard_cap = stats[1:].tolist()
     else:
         truncated = step_total = hard_cap = 0
     _record(args.n, truncated, 1, step_total, hard_cap)

@@ -16,6 +16,7 @@ import torch
 from ..core.camera import block_pixels, primary_rays
 from ..core.types import Rays
 from ..ops import sortrays
+from ..utils import profiling
 from .sampling import cosine_hemisphere, hit_points_normals
 
 # Self-intersection offsets, scaled by the hit point's distance from the
@@ -46,11 +47,13 @@ def trace_sorted(session, rays: Rays, any_hit: bool = False,
         return session.trace(rays, any_hit=any_hit, cal_key=cal_key)
     grid = session.grid
     om = sort == "origin"
-    sorted_rays, perm = sortrays.sort_rays(
-        rays, grid.bbox_lo, grid.bbox_hi, bits=10 if om else 7,
-        origin_major=om)
+    with profiling.span("sort"):
+        sorted_rays, perm = sortrays.sort_rays(
+            rays, grid.bbox_lo, grid.bbox_hi, bits=10 if om else 7,
+            origin_major=om)
     hits = session.trace(sorted_rays, any_hit=any_hit, cal_key=cal_key)
-    return sortrays.unsort(hits, perm)
+    with profiling.span("unsort"):
+        return sortrays.unsort(hits, perm)
 
 
 def ao_rays(p, n, found, max_dist: float, generator: torch.Generator):
@@ -77,20 +80,24 @@ def ambient_occlusion(session, rays: Rays, hits, generator: torch.Generator,
                       n_samples: int = 4, max_dist: float | None = None):
     """AO estimate in [0, 1] per ray (1 = fully open), occluders within
     max_dist (None: default_ao_distance, 0.1 x the scene's largest
-    extent). Misses get 0."""
-    p, n, found = hit_points_normals(rays, hits, session.grid.tris.n)
-    if max_dist is None:
-        max_dist = default_ao_distance(session)
-    acc = torch.zeros((rays.count,), dtype=torch.float32, device=p.device)
-    for _ in range(n_samples):
-        sec = ao_rays(p, n, found, max_dist, generator)
-        # One calibration key for all samples: they are draws of one wave
-        # shape, so budgets transfer; a sample that outgrows them sets
-        # its overflow flag and poll_overflow grows the shared budget.
-        occ = trace_sorted(session, sec, any_hit=True,
-                           cal_key="ao").tri_id >= 0
-        acc = acc + torch.where(found & ~occ, 1.0, 0.0)
-    return acc / n_samples
+    extent). Misses get 0. Span "ao" with tracing on
+    (utils/profiling.py)."""
+    with profiling.span("ao"):
+        p, n, found = hit_points_normals(rays, hits, session.grid.tris.n)
+        if max_dist is None:
+            max_dist = default_ao_distance(session)
+        acc = torch.zeros((rays.count,), dtype=torch.float32,
+                          device=p.device)
+        for _ in range(n_samples):
+            sec = ao_rays(p, n, found, max_dist, generator)
+            # One calibration key for all samples: they are draws of one
+            # wave shape, so budgets transfer; a sample that outgrows them
+            # sets its overflow flag and poll_overflow grows the shared
+            # budget.
+            occ = trace_sorted(session, sec, any_hit=True,
+                               cal_key="ao").tri_id >= 0
+            acc = acc + torch.where(found & ~occ, 1.0, 0.0)
+        return acc / n_samples
 
 
 def shadow_rays(p, n, found, light_pos):

@@ -43,6 +43,7 @@ import torch
 from ..core.types import Hits, Rays, Triangles
 from ..grid import irregular, packet, uniform
 from ..ops.sweep_trace import trace_frame, trace_sweep
+from ..utils import profiling
 from ..utils.config import BuildParams
 from ..utils.graphs import Graphs, const
 
@@ -64,6 +65,14 @@ def _rung(x: int, base: int) -> int:
         if g >= u:
             return g * base
     return (4 << k) * base
+
+
+def _wave(key) -> str:
+    """A wave key's name in the counters: its cal_key, else "primary"
+    (coherent) or "secondary"."""
+    _, coherent, _, cal_key = key
+    return str(cal_key) if cal_key is not None else (
+        "primary" if coherent else "secondary")
 
 
 @dataclasses.dataclass
@@ -122,6 +131,10 @@ class RenderSession:
         spans as captured graphs. A warm grid's tables are the graphs'
         buffers; the grid handed out before it moves to storage of its
         own first (_detach), so a grid a caller kept stays its frame's."""
+        with profiling.span("rebuild"):
+            return self._rebuild(tris)
+
+    def _rebuild(self, tris: Triangles):
         warm = self.grid is not None and tris.count > 0
         if warm:
             self._detach()
@@ -160,11 +173,13 @@ class RenderSession:
         buffers to storage of its own (a device copy, in place on the
         grid object the caller may hold), before a warm rebuild replays
         over the buffers; a cold grid has none there."""
-        g, held = self.grid, self._graphs.buffers()
-        for f in dataclasses.fields(g):
-            x = getattr(g, f.name)
-            if torch.is_tensor(x) and x.untyped_storage().data_ptr() in held:
-                setattr(g, f.name, x.clone())
+        with profiling.span("rebuild.detach"):
+            g, held = self.grid, self._graphs.buffers()
+            for f in dataclasses.fields(g):
+                x = getattr(g, f.name)
+                if (torch.is_tensor(x)
+                        and x.untyped_storage().data_ptr() in held):
+                    setattr(g, f.name, x.clone())
 
     def _warm_packet(self, tris: Triangles):
         """build_packet at the grid's capacity and dims with check=False,
@@ -209,6 +224,11 @@ class RenderSession:
         to pick its refill threshold). cal_key distinguishes wave kinds of
         one shape that need separate budgets (AO samples share one, path
         bounces another); the wavefront structures ignore it."""
+        with profiling.span("trace"):
+            return self._trace(rays, any_hit, coherent, cal_key)
+
+    def _trace(self, rays: Rays, any_hit: bool, coherent: bool,
+               cal_key) -> Hits:
         if self.structure == "uniform":
             return uniform.trace_uniform_fast(self.grid, rays,
                                               any_hit=any_hit,
@@ -254,6 +274,12 @@ class RenderSession:
         on the rung ladders, and re-probe until the wave completes (its
         own overflow flag clear). Incoherent and any-hit waves vary more
         from frame to frame and get the larger margin."""
+        profiling.count("calibrations")
+        with profiling.span("calibrate"):
+            return self._calibrate_budgets(key, rays, any_hit, coherent)
+
+    def _calibrate_budgets(self, key, rays: Rays, any_hit: bool,
+                           coherent: bool):
         margin = 1.3 if (coherent and not any_hit) else 1.5
         bmax = rowmax = None                # first probe: default budgets
         for _ in range(_CAL_TRIES):
@@ -288,13 +314,18 @@ class RenderSession:
         frame boundaries). With recalibrate=True, grow each offending
         wave's budgets one step (x2 on the ladders), drop its graph and
         zero its flag and trace_overflow in place (a graph writes them).
-        Returns the OR of the flags."""
+        Returns the OR of the flags. It closes the frame's record of the
+        program's spans and counters (utils/profiling.py), with tracing
+        on: span "read.poll" around the read, a counter
+        "recalibrations.<wave>" for each budget it grows."""
         if not self._ovf:
+            profiling.close_frame()
             return False
         keys = list(self._ovf)
         # One read of all the flags at once.
-        flags = dict(zip(keys, torch.stack(
-            [self._ovf[k].reshape(()) for k in keys]).tolist()))
+        with profiling.span("read.poll"):
+            flags = dict(zip(keys, torch.stack(
+                [self._ovf[k].reshape(()) for k in keys]).tolist()))
         any_ovf = any(flags.values())
         if any_ovf and recalibrate:
             for key, v in flags.items():
@@ -306,8 +337,11 @@ class RenderSession:
                     _rung(rowmax * 2, 8192) if rowmax else rowmax)
                 self._ovf[key].zero_()
                 self._graphs.drop(("trace", key))
+                if profiling.tracing():
+                    profiling.count("recalibrations." + _wave(key))
             if self.trace_overflow is not None:
                 self.trace_overflow.zero_()
+        profiling.close_frame()
         return any_ovf
 
     def describe(self) -> str:

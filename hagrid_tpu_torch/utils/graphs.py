@@ -31,16 +31,28 @@ Kernel launches are counted where they happen: a wrapper calls
 `count_launch`, which adds to its counter at once, or, while a graph
 captures (`capturing`, for a `Captured` body or a graph captured
 elsewhere), to that graph's tally; each replay adds the tally again
-(`add_tally`).
+(`add_tally`). The program's spans (utils/profiling.py) go the same way:
+a span opened during a capture is a pair of event nodes of the graph,
+which the tally keeps and each replay hands to the current frame.
+
+With tracing on, `Graphs.call` is span "graph.<slot>" (the input copies,
+the replay or the capture, the output clones), a capture span
+"graph.capture" (whose host seconds are `capture_s`), and counters
+"captures.<slot>" and "recaptures.<slot>": a recapture is any capture of
+a slot after its first, whether the slot held another key or was
+dropped, recorded with the key positions that changed. A key holds the
+tracing switch, so a graph captured with its event nodes is never
+replayed untraced.
 """
 
 from __future__ import annotations
 
 import contextlib
 import gc
-import time
 
 import torch
+
+from . import profiling
 
 # The launch tally of the capture in progress ({(id, name): [counter,
 # name, n]}), or None.
@@ -59,35 +71,46 @@ def count_launch(counter: dict, name: str):
     entry[2] += 1
 
 
+class Tally(list):
+    """A capture's launches, (counter, name, n) each, and in `spans` the
+    program's spans it captured (utils/profiling.py)."""
+
+    spans = ()
+
+
 @contextlib.contextmanager
 def capturing():
     """The block is a graph's capture: the launches counted inside it go
-    to a tally, which the block yields (a list, filled with (counter,
-    name, n) when the block ends) for `add_tally` at each replay; no
-    cyclic collection runs meanwhile (one can free tensors whose release
-    the capture refuses: a failed capture's leftovers did, in a process
-    that had caught its error; torch.cuda.graph collects before the
-    capture begins)."""
+    to a tally, which the block yields (a `Tally`, filled with (counter,
+    name, n) and its spans when the block ends) for `add_tally` at each
+    replay; no cyclic collection runs meanwhile (one can free tensors
+    whose release the capture refuses: a failed capture's leftovers did,
+    in a process that had caught its error; torch.cuda.graph collects
+    before the capture begins)."""
     global _tally
     if _tally is not None:
         raise RuntimeError("a capture is already in progress")
-    tally = []
+    tally = Tally()
     _tally = {}
     collecting = gc.isenabled()
     gc.disable()
     try:
-        yield tally
+        with profiling.graph_spans() as spans:
+            yield tally
     finally:
         tally.extend(tuple(v) for v in _tally.values())
+        tally.spans = tuple(spans)
         _tally = None
         if collecting:
             gc.enable()
 
 
 def add_tally(tally):
-    """One replay of a graph whose capture counted `tally`."""
+    """One replay of a graph whose capture counted `tally`: its launches,
+    and its spans into the current frame."""
     for counter, name, n in tally:
         counter[name] += n
+    profiling.replay(getattr(tally, "spans", ()))
 
 
 def const(values, dtype, device) -> torch.Tensor:
@@ -157,7 +180,11 @@ class Captured:
         add_tally(self.tally)
 
     def _capture(self):
-        t0 = time.perf_counter()
+        with profiling.clocked("graph.capture") as clock:
+            self._warm_capture_replay()
+        self.capture_s = clock.host_s
+
+    def _warm_capture_replay(self):
         cur = torch.cuda.current_stream()
         side = torch.cuda.Stream()
         side.wait_stream(cur)
@@ -174,12 +201,11 @@ class Captured:
                 root = root.__context__
             raise RuntimeError(f"capture of {self.what} failed: "
                                f"{root}") from e
-        self.tally = tuple(tally)
+        self.tally = tally
         self.graph, self.outputs = graph, out
         graph.replay()
         self._count()
         torch.cuda.synchronize()
-        self.capture_s = time.perf_counter() - t0
 
 
 class Graphs:
@@ -187,23 +213,47 @@ class Graphs:
 
     def __init__(self):
         self._slots = {}     # slot -> (key, Captured)
+        self._last = {}      # slot -> the key of its last capture
 
     def call(self, slot, key, body, inputs, reads=(), fresh=True) -> tuple:
         """body's outputs on `inputs`, from the slot's capture for `key`
         and the addresses of `reads` (captured now if the slot holds
         another). fresh=False returns the capture's own output buffers,
         which the next call of the slot overwrites."""
-        key = (tuple(key), _reads_key(reads))
-        held = self._slots.get(slot)
-        if held is None or held[0] != key:
-            self._slots.pop(slot, None)
-            cap = Captured((slot, key[0]), body, inputs,
-                           (tuple(inputs) + tuple(reads))[0].device)
-            out = cap(inputs)
-            self._slots[slot] = (key, cap)
-        else:
-            out = held[1](inputs)
-        return tuple(o.clone() for o in out) if fresh else out
+        key = (tuple(key), _reads_key(reads), profiling.tracing())
+        name = slot if isinstance(slot, str) else slot[0]
+        with profiling.span("graph." + name):
+            held = self._slots.get(slot)
+            if held is None or held[0] != key:
+                self._slots.pop(slot, None)
+                cap = Captured((slot, key[0]), body, inputs,
+                               (tuple(inputs) + tuple(reads))[0].device)
+                out = cap(inputs)
+                self._slots[slot] = (key, cap)
+                self._counted(slot, name, key, cap)
+            else:
+                out = held[1](inputs)
+            return tuple(o.clone() for o in out) if fresh else out
+
+    def _counted(self, slot, name, key, cap):
+        """Count a capture of `slot` (tracing on), and a recapture with
+        the key positions that changed since its last capture."""
+        old = self._last.get(slot)
+        self._last[slot] = key
+        if not profiling.tracing():
+            return
+        profiling.count("captures." + name)
+        if old is None:
+            return
+        profiling.count("recaptures." + name)
+        changed = [[f"key[{i}]", repr(a)[:80], repr(b)[:80]]
+                   for i, (a, b) in enumerate(zip(old[0], key[0])) if a != b]
+        if old[1] != key[1]:
+            changed.append(["reads", None, None])
+        if old[2] != key[2]:
+            changed.append(["tracing", old[2], key[2]])
+        profiling.recaptured(name, changed, None if cap.capture_s is None
+                             else cap.capture_s * 1e3)
 
     def buffers(self) -> set:
         """The storage addresses of every capture's input and output

@@ -1280,3 +1280,64 @@ def test_graphed_frame_equals_eager_on_card(cuda):
             assert torch.equal(getattr(got, k).view(torch.int32),
                                getattr(want, k).view(torch.int32)), (t, k)
     assert anim._graphs.captured("frame").graph is not None
+
+
+def _traced_loop(structure, device, traced, frames=4):
+    """A dynamic loop on the soup at 64x64 (deform, warm rebuild,
+    primaries, the overflow poll) with the program's tracing on or off:
+    (each frame's hits, the frames' records)."""
+    v, f, rays = _graph_scene("soup", device)
+    profiling.tracing(traced)
+    profiling.reset()
+    try:
+        anim = AnimatedScene(v, f, device=device)
+        s = RenderSession.create(anim.frame(0.0), structure=structure,
+                                 verts=v, bbox_margin=0.3)
+        s.poll_overflow()
+        hits = []
+        for i in range(frames):
+            s.rebuild(anim.frame(0.1 * (i + 1)))
+            hits.append(s.trace(rays, coherent=True))
+            s.poll_overflow()
+        return hits, profiling.frames()
+    finally:
+        profiling.tracing(False)
+        profiling.reset()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("structure", ["packet", "irregular"])
+def test_traced_spans_time_each_replay_on_card(cuda, structure):
+    """With the program's tracing on, the card's graphs carry event nodes:
+    every frame after the captures times its in-graph spans again (the
+    sweep's, inside the packet wave's graph), each span's children take at
+    most its device time, and the hits equal the untraced loop's."""
+    plain, _ = _traced_loop(structure, cuda, False)
+    traced, records = _traced_loop(structure, cuda, True)
+    for a, b in zip(plain, traced):
+        _assert_hits_bit_equal(b, a, structure)
+    warm = records[2:]
+    assert len(warm) == 3
+    for rec in warm:
+        sp = rec["spans"]
+        assert not any(k.startswith("captures.") for k in rec["counts"])
+        for name, s in sp.items():
+            assert s["self_ms"] <= s["device_ms"] + 1e-3, name
+        builds = [k for k in sp if k.startswith("graph.")
+                  and k not in ("graph.frame", "graph.trace")]
+        assert builds
+        parts = sum(sp[k]["device_ms"] for k in builds + ["rebuild.detach"]
+                    + (["read.build"] if "read.build" in sp else []))
+        assert 0 < parts <= sp["rebuild"]["device_ms"] + 1e-3
+        if structure == "packet":
+            kids = ("sweep.layout", "sweep.plan", "sweep.kernel",
+                    "sweep.merge")
+            assert all(sp[k]["device_ms"] > 0 for k in kids)
+            assert sp["sweep.plan"]["n"] == sp["sweep.kernel"]["n"]
+            inner = sum(sp[k]["device_ms"] for k in kids)
+            assert inner <= sp["graph.trace"]["device_ms"] + 1e-3
+            assert sp["graph.trace"]["device_ms"] <= \
+                sp["trace"]["device_ms"] + 1e-3
+        else:
+            assert sp["march"]["device_ms"] > 0
+            assert rec["counts"]["march.rays"] == 64 * 64
