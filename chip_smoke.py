@@ -201,6 +201,19 @@ Phases, one line each (any failure exits non-zero before the result):
    irregular runs, the hit fraction of phase 4 and phase 12. Each run's
    line is printed ([bench]), and one JSON line {"bench": ...} carries
    them.
+18. the integer drop-mode scatter kernel (S1, csrc/scatter.cu) at the
+   shapes the main path gives it: every call of an eager irregular warm
+   rebuild, an eager packet build and the planner of an eager packet
+   primary frame, recorded with its call site and inputs, run again
+   through add_at_drop and through add_at_drop_plain (index_add_ with
+   the overflow slot) and bit-equal on every call; the largest call of
+   each site timed in graphs of back-to-back calls (the kernel, the
+   plain version, index_add_ alone; the kernel under the profiler; the
+   bound, the bytes of indices and addends read once), the irregular
+   rebuild's calls together; the kernel's launches from zero over one
+   replayed irregular warm rebuild (one for each call of the eager
+   build), packet warm rebuild and packet primary frame ([scatter]
+   lines, one {"scatter": ...} line).
 The last two lines are the kernels' JSON record and
 {"ok": true, "device": {...}}. Needs a CUDA device; imports no JAX.
 """
@@ -232,7 +245,7 @@ from hagrid_tpu_torch.grid import invariants, irregular, uniform
 from hagrid_tpu_torch.grid.packet import build_packet, rays_to_x
 from hagrid_tpu_torch.io import obj
 from hagrid_tpu_torch.io.image import dhash, hamming, shade_eyelight
-from hagrid_tpu_torch.ops import _build, sortrays, wavefront
+from hagrid_tpu_torch.ops import _build, segment, sortrays, wavefront
 from hagrid_tpu_torch.ops import micro_kernels as mk
 from hagrid_tpu_torch.ops import sweep_kernel as sk
 from hagrid_tpu_torch.ops import sweep_trace as st_mod
@@ -384,6 +397,14 @@ BENCH_TIMEOUT_S = 300
 BUILD_CALLS = 10
 BUILD_FRAMES = 5
 SPAN_REPLAYS = 5
+# Phase 18: the scatter kernel (S1). Calls of one shape captured back to
+# back in one graph, and the graph's replays timed.
+SCATTER_SOURCE = "hagrid_tpu_torch/csrc/scatter.cu"
+SCATTER_REPLACES = ("hagrid_tpu/ops/segment.py:51 and the builds' other "
+                    "integer .at[idx].add(..., mode=\"drop\") (XLA "
+                    "scatters; no Pallas kernel)")
+SCATTER_CHAIN = 10
+SCATTER_ITERS = 5
 
 
 class SmokeFailure(Exception):
@@ -673,7 +694,8 @@ def compare_anyhit(name, got, ref, args, rows):
 
 
 def reset_launches():
-    for counts in (sk.launches, mk.launches, wavefront.launches):
+    for counts in (sk.launches, mk.launches, wavefront.launches,
+                   segment.launches):
         for k in counts:
             counts[k] = 0
 
@@ -3229,6 +3251,223 @@ def march_entry(m, ref_launches, lockstep, build_launches, bench_launches):
         ptxas=m["ptxas"])
 
 
+def scatter_site():
+    """The call site of the scatter wrapper's caller: file:function of the
+    first frame outside ops/segment.py, and the segment.py helper it
+    called through (segment_starts, expand_by_counts, ...)."""
+    f, helper = sys._getframe(2), None
+    while f is not None and f.f_globals.get("__name__") == segment.__name__:
+        if f.f_code.co_name not in ("add_at_drop", "add_at_drop_kernel"):
+            helper = f.f_code.co_name
+        f = f.f_back
+    site = (f"{pathlib.Path(f.f_code.co_filename).name}:{f.f_code.co_name}"
+            if f is not None else "?")
+    return f"{site} ({helper})" if helper else site
+
+
+@contextlib.contextmanager
+def scatter_calls():
+    """Every call of the scatter kernel's wrapper within the block, as
+    [(site, n, idx, vals)] with copies of the inputs (an expanded addend
+    stays expanded, a Python fill stays a fill)."""
+    calls, real = [], segment.add_at_drop_kernel
+
+    def rec(n, idx, vals):
+        v = vals
+        if torch.is_tensor(vals):
+            v = vals.expand(idx.shape)
+            v = (v[:1].clone().expand(idx.shape)
+                 if v.numel() and v.stride(0) == 0 else v.clone())
+        calls.append((scatter_site(), n, idx.clone(), v))
+        return real(n, idx, vals)
+
+    segment.add_at_drop_kernel = rec
+    try:
+        yield calls
+    finally:
+        segment.add_at_drop_kernel = real
+
+
+def scatter_bytes(idx, vals):
+    """Bytes of the indices and the addends, each read once (an expanded
+    addend is one element, a fill none)."""
+    b = idx.numel() * idx.element_size()
+    if torch.is_tensor(vals):
+        b += vals.element_size() * (vals.numel() if vals.stride(0) else 1)
+    return b
+
+
+def scatter_record(site, n, idx, vals, dev, card):
+    """One call's shape timed: the kernel through add_at_drop, its plain
+    version add_at_drop_plain, the library's index_add_ alone (into n + 1
+    zeroed slots, indices clamped and addends made beforehand), each as
+    SCATTER_CHAIN calls in one graph; the kernel's time under the
+    profiler; the byte bound."""
+    def chain_ms(fn):
+        return cuda_ms(kernel_mt20.graphed(fn, SCATTER_CHAIN, dev),
+                       iters=SCATTER_ITERS, warmup=1) / SCATTER_CHAIN
+
+    filled = (vals if torch.is_tensor(vals) else torch.full(
+        idx.shape, vals, dtype=torch.int32, device=dev))
+    ci = idx.clamp(max=n).long()
+    slots = torch.zeros((n + 1,), dtype=filled.dtype, device=dev)
+    nbytes_ = scatter_bytes(idx, vals)
+    rec = dict(
+        site=site, rows=idx.numel(), n=n,
+        idx_dtype=str(idx.dtype).replace("torch.", ""),
+        vals=(str(vals.dtype).replace("torch.", "")
+              + (" expanded" if vals.stride(0) == 0 else "")
+              if torch.is_tensor(vals) else f"fill {vals}"),
+        rows_dropped=int((idx >= n).sum()),
+        rows_zero=int((filled == 0).sum()),
+        ms=chain_ms(lambda: segment.add_at_drop(n, idx, vals)),
+        plain_ms=chain_ms(lambda: segment.add_at_drop_plain(n, idx, vals)),
+        library_ms=chain_ms(lambda: slots.zero_().index_add_(0, ci, filled)),
+        profiler_ms=kernel_profile_ms(
+            lambda: segment.add_at_drop(n, idx, vals),
+            "scatter_add_drop_kernel"),
+        bytes=nbytes_, bound_ms=nbytes_ / HBM_RATE * 1e3, bound_by="bytes")
+    prof_us = (f"{rec['profiler_ms'] * 1e3:.1f} us" if rec["profiler_ms"]
+               else "no kernel seen")
+    print(f"[scatter] {site}: {rec['rows']} {rec['idx_dtype']} indices, n "
+          f"{n}, addends {rec['vals']}, {rec['rows_dropped']} dropped, "
+          f"{rec['rows_zero']} zero; kernel {rec['ms'] * 1e3:.1f} us a call "
+          f"(profiler {prof_us}, zero fill excluded), plain "
+          f"{rec['plain_ms'] * 1e3:.1f} us, "
+          f"index_add_ alone {rec['library_ms'] * 1e3:.1f} us; bound "
+          f"{rec['bound_ms'] * 1e3:.1f} us ({nbytes_} bytes at "
+          f"{HBM_RATE / 1e12:.2f} TB/s) ({card})", flush=True)
+    return rec
+
+
+def scatter_phase(v, tris, rays, card, dev):
+    """Phase 18: the scatter kernel (S1) on the shapes the main path gives
+    it. Every call of an eager irregular warm rebuild (BuildParams(), the
+    session's top dims), an eager packet build and the planner of an
+    eager packet primary frame is recorded; each is run again through
+    add_at_drop and through add_at_drop_plain on the same inputs and must
+    be bit-equal; the largest call of each site is timed
+    (scatter_record), and the irregular build's calls all together, in
+    one graph; the kernel's launches are counted from zero over one
+    replayed warm rebuild of an irregular session (one launch for each
+    call of the eager build) and over the packet session's replayed warm
+    rebuild and primary frame. Returns the kernels line's entry."""
+    t_phase = time.perf_counter()
+    s_irr = RenderSession.create(tris, structure="irregular", verts=v)
+    s_pk = RenderSession.create(tris, structure="packet", verts=v)
+    torch.cuda.synchronize()
+    recorded = {}
+    with scatter_calls() as recorded["irregular rebuild"]:
+        irregular.build_irregular(tris, BuildParams(),
+                                  top_dims=s_irr.grid.top_dims)
+        torch.cuda.synchronize()
+    with scatter_calls() as recorded["packet build"]:
+        grid = eager_rebuild(s_pk, tris)
+        torch.cuda.synchronize()
+    with scatter_calls() as recorded["packet planner"]:
+        trace_sweep(grid, rays, coherent=True)
+        torch.cuda.synchronize()
+    del grid
+
+    # Bit equality, call by call, at the main path's shapes.
+    bad, n_calls = [], 0
+    for what, calls in recorded.items():
+        for site, n, idx, vals in calls:
+            got = segment.add_at_drop(n, idx, vals)
+            want = segment.add_at_drop_plain(n, idx, vals)
+            torch.cuda.synchronize()
+            n_calls += 1
+            if got.dtype != want.dtype or not torch.equal(got, want):
+                bad.append(f"{what}: {site}")
+    sites = {}
+    for what, calls in recorded.items():
+        for site, n, idx, vals in calls:
+            e = sites.setdefault(f"{what}: {site}", dict(calls=0, rows=0))
+            e["calls"] += 1
+            e["rows"] += idx.numel()
+    print(f"[scatter] {n_calls} recorded calls ("
+          + ", ".join(f"{k} {len(c)}" for k, c in recorded.items())
+          + f"), kernel against add_at_drop_plain: "
+          f"{'bit-equal on every call' if not bad else f'DIFFER in {bad}'};"
+          f" calls and rows by site {sites}", flush=True)
+    check(not bad, f"the scatter kernel differs from its plain version in "
+          f"{bad}")
+    check(recorded["irregular rebuild"] and recorded["packet planner"],
+          "the irregular rebuild or the planner made no integer scatter")
+
+    # The largest call of each site, then the irregular build's calls
+    # together (one graph of the build's calls in order).
+    largest = {}
+    for what, calls in recorded.items():
+        for call in calls:
+            key = f"{what}: {call[0]}"
+            if key not in largest or call[2].numel() > largest[key][2].numel():
+                largest[key] = call
+    records = [scatter_record(key, n, idx, vals, dev, card)
+               for key, (_, n, idx, vals) in largest.items()]
+    irr_calls = recorded["irregular rebuild"]
+
+    def all_calls(fn):
+        return lambda: [fn(n, idx, vals) for _, n, idx, vals in irr_calls]
+    build = dict(
+        calls=len(irr_calls),
+        ms=cuda_ms(kernel_mt20.graphed(all_calls(segment.add_at_drop), 1,
+                                       dev), iters=SCATTER_ITERS, warmup=1),
+        plain_ms=cuda_ms(kernel_mt20.graphed(
+            all_calls(segment.add_at_drop_plain), 1, dev),
+            iters=SCATTER_ITERS, warmup=1),
+        bound_ms=sum(scatter_bytes(idx, vals) for _, _, idx, vals
+                     in irr_calls) / HBM_RATE * 1e3)
+    print(f"[scatter] the irregular warm rebuild's {build['calls']} calls "
+          f"in one graph: kernel {build['ms']:.4f} ms, plain "
+          f"{build['plain_ms']:.4f} ms, bound {build['bound_ms']:.4f} ms "
+          f"({card})", flush=True)
+
+    # Launches from zero: one replayed warm rebuild of each session, one
+    # replayed packet primary frame (the first call of each captures).
+    counts = {}
+    for what, fn in (("irregular rebuild", lambda: s_irr.rebuild(tris)),
+                     ("packet rebuild", lambda: s_pk.rebuild(tris)),
+                     ("packet primary frame",
+                      lambda: s_pk.trace(rays, coherent=True))):
+        fn()
+        fn()
+        torch.cuda.synchronize()
+        reset_launches()
+        fn()
+        torch.cuda.synchronize()
+        counts[what] = segment.launches["scatter_add_drop"]
+    print(f"[scatter] kernel launches from zero, one replay each: {counts}"
+          f"; the eager irregular rebuild made {len(irr_calls)} calls",
+          flush=True)
+    check(counts["irregular rebuild"] == len(irr_calls),
+          f"a replayed irregular warm rebuild launched the scatter "
+          f"{counts['irregular rebuild']} times, its eager build called it "
+          f"{len(irr_calls)} times")
+    check(counts["packet rebuild"] > 0 and counts["packet primary frame"] > 0,
+          f"the packet session launched no scatter: {counts}")
+    main = max((r for r in records
+                if r["site"].startswith("irregular rebuild")),
+               key=lambda r: r["rows"])
+    phase_s = time.perf_counter() - t_phase
+    print(f"[scatter] phase 18 took {phase_s:.1f} s", flush=True)
+    print(json.dumps({"scatter": dict(card=card, calls=n_calls,
+                                      records=records, build=build,
+                                      launches=counts, phase_s=phase_s)}),
+          flush=True)
+    return dict(
+        name="scatter_add_drop", route="cuda", source=SCATTER_SOURCE,
+        replaces=SCATTER_REPLACES, launches=counts["irregular rebuild"],
+        launches_packet_rebuild=counts["packet rebuild"],
+        launches_packet_frame=counts["packet primary frame"],
+        max_abs_err=0 if not bad else None, shape=main["site"],
+        rows=main["rows"], n=main["n"], ms=main["ms"],
+        plain_ms=main["plain_ms"], library_ms=main["library_ms"],
+        profiler_ms=main["profiler_ms"], bound_ms=main["bound_ms"],
+        bound_by="bytes", build_ms=build["ms"],
+        build_plain_ms=build["plain_ms"], build_bound_ms=build["bound_ms"])
+
+
 def bench_phase(card, packet_hit, irregular_hit):
     """Phase 17: bench_torch.py at its defaults in BENCH_RUNS' processes,
     one at a time, alone on the card. Returns (record, the launches of
@@ -3471,6 +3710,9 @@ def main(profile_path=False, with_variants=False) -> int:
     _, bench_launches = bench_phase(card, hit_frac,
                                     march["primary_hit_fraction"])
 
+    # 18. the integer drop-mode scatter (S1) at the main path's shapes
+    scatter_kernel = scatter_phase(v, tris, rays, card, dev)
+
     # 6. optional device-time breakdown, run last
     if profile_path is not False:
         for what, fn in (("frame", lambda: session.trace(rays, coherent=True)),
@@ -3498,7 +3740,9 @@ def main(profile_path=False, with_variants=False) -> int:
     # dynamic frames' sweep launches ride on the closest-hit entry, phase
     # 13's (option grids, fine bins) on both sweep entries, and phase 17's
     # (the bench's processes, counted there from zero) on all three. No
-    # single PyTorch call computes the sweep: library_ms is null.
+    # single PyTorch call computes the sweep: library_ms is null. The
+    # scatter's entry (phase 18): its time on the irregular rebuild's
+    # largest call, its launches a replayed irregular warm rebuild.
     kernels = [
         dict(name="sweep_blocks", route="cuda", source=KERNEL_SOURCE,
              replaces=REPLACES,
@@ -3546,7 +3790,8 @@ def main(profile_path=False, with_variants=False) -> int:
              blocks_dense_incoherent=k3_d["blocks"]),
         *micro_kernels,
         march_entry(march, ref_launches["wavefront_march"], ref_march,
-                    build_launches, bench_launches["wavefront_march"])]
+                    build_launches, bench_launches["wavefront_march"]),
+        scatter_kernel]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -124,7 +124,18 @@ def load():
         lib.hagrid_wavefront_march.restype = i
         lib.hagrid_sweep_occupancy.argtypes = [i, i, p]
         lib.hagrid_sweep_occupancy.restype = i
+        q = ctypes.c_longlong
+        lib.hagrid_scatter_add_drop.argtypes = [p, i, q, p, i, q, q, q, i, p,
+                                                i, p]
+        lib.hagrid_scatter_add_drop.restype = i
         lib.hagrid_error_string.argtypes = [i]
         lib.hagrid_error_string.restype = ctypes.c_char_p
         _lib = lib
     return _lib
+
+
+def raise_on(lib, err: int, what: str):
+    """Raise when a kernel's C entry point returned a CUDA error."""
+    if err:
+        raise RuntimeError(f"{what} kernel launch failed: "
+                           f"{lib.hagrid_error_string(err).decode()}")

@@ -48,8 +48,9 @@ import torch
 
 from ..utils.graphs import count_launch
 from . import _build
+from ._build import raise_on
 from .sweep_kernel import (UNIT_ROWS, UNITS_PER_BLOCK, _check, _empty_out,
-                           cuda_launch_args, raise_on)
+                           cuda_launch_args)
 
 BLOCK_ROWS = 128       # group rows of g per stream block
 BLOCK_C_ROWS = 3072    # rows of c per stream block: 4 forms x 768 refs

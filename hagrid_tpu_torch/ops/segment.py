@@ -4,8 +4,10 @@ Also home of the two helpers that give torch the reference's
 out-of-range semantics, which torch does not share:
 - `add_at_drop` is `jnp.zeros(n).at[idx].add(vals, mode="drop")`: torch
   raises (CPU) or device-asserts (CUDA) on an index past the end, so the
-  scatter goes into a buffer one slot longer and the overflow slot is
-  cut off.
+  plain version `add_at_drop_plain` scatters into a buffer one slot
+  longer and cuts the overflow slot off. Integer addends on the card go
+  to csrc/scatter.cu's kernel instead, which drops those rows and
+  issues no atomic for them (`launches` counts its launches).
 - `trunc_i32` is XLA's saturating f32 -> i32 cast: torch wraps
   out-of-range values to INT_MIN, which turns a saturated upper bound
   into column 0. Values are clamped in float first (NaN -> 0).
@@ -16,9 +18,19 @@ out-of-range semantics, which torch does not share:
 
 from __future__ import annotations
 
+import operator
+
 import torch
 
+from ..utils.graphs import count_launch
+from . import _build
+
 _I32_SAFE = float(1 << 30)
+_INTS = (torch.int32, torch.int64)
+
+# Kernel launches, counted where the kernel is launched (a captured
+# graph's at each replay: utils/graphs.count_launch).
+launches = {"scatter_add_drop": 0}
 
 
 def exclusive_scan(x: torch.Tensor) -> torch.Tensor:
@@ -29,7 +41,58 @@ def exclusive_scan(x: torch.Tensor) -> torch.Tensor:
 def add_at_drop(n: int, idx: torch.Tensor, vals) -> torch.Tensor:
     """zeros[n] with `vals` added at `idx`; indices >= n are dropped
     (idx must be non-negative). The result has the dtype of a tensor
-    `vals`, i32 for a Python number."""
+    `vals`, i32 for a Python number. Integer addends (i32, i64 or a
+    Python int) on the card take the scatter kernel, anything else
+    (CPU tensors, float addends) the plain version: integer sums do not
+    depend on their order, so both give the same bits."""
+    if idx.device.type != "cpu" and (
+            not torch.is_tensor(vals) or vals.dtype in _INTS):
+        return add_at_drop_kernel(n, idx, vals)
+    return add_at_drop_plain(n, idx, vals)
+
+
+def add_at_drop_kernel(n: int, idx: torch.Tensor, vals) -> torch.Tensor:
+    """`add_at_drop` by csrc/scatter.cu's kernel: idx i32 or i64 and vals
+    i32, i64 or a Python int, read where they lie (an expanded vals is
+    read with stride 0); no atomic for a dropped row or a zero addend,
+    one for each run of equal indices in a warp's rows."""
+    if idx.dim() != 1:
+        raise ValueError(f"add_at_drop: idx must be 1-D, got {idx.dim()}-D")
+    if not 0 <= n < (1 << 31) - 1:
+        raise ValueError(f"add_at_drop: n = {n} outside [0, 2^31 - 1)")
+    if idx.dtype not in _INTS:
+        idx = idx.long()
+    if torch.is_tensor(vals):
+        if vals.dtype not in _INTS or vals.device != idx.device:
+            raise TypeError(f"add_at_drop: the kernel takes i32 or i64 "
+                            f"addends on {idx.device}, got {vals.dtype} "
+                            f"on {vals.device}")
+        vals = vals.expand(idx.shape)
+        dtype, vptr, vstride, fill = (vals.dtype, vals.data_ptr(),
+                                      vals.stride(0), 0)
+    else:
+        dtype, vptr, vstride, fill = torch.int32, None, 0, operator.index(
+            vals)
+        if not -(1 << 31) <= fill < (1 << 31):
+            raise OverflowError(f"add_at_drop: fill {fill} does not fit "
+                                f"int32")
+    out = torch.zeros((n,), dtype=dtype, device=idx.device)
+    if n == 0 or idx.numel() == 0:
+        return out
+    lib = _build.load()
+    err = lib.hagrid_scatter_add_drop(
+        idx.data_ptr(), idx.element_size(), idx.stride(0), vptr,
+        out.element_size(), vstride, fill, idx.numel(), n, out.data_ptr(),
+        torch.cuda.get_device_properties(idx.device).multi_processor_count,
+        torch.cuda.current_stream(idx.device).cuda_stream)
+    _build.raise_on(lib, err, "scatter_add_drop")
+    count_launch(launches, "scatter_add_drop")
+    return out
+
+
+def add_at_drop_plain(n: int, idx: torch.Tensor, vals) -> torch.Tensor:
+    """Plain version of `add_at_drop`: index_add_ into n + 1 slots, every
+    dropped index clamped onto the last, which is cut off."""
     if not torch.is_tensor(vals):   # a fill, not a copy from the host
         vals = torch.full(idx.shape, vals, dtype=torch.int32,
                           device=idx.device)

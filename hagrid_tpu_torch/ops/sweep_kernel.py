@@ -45,6 +45,7 @@ import torch
 
 from ..utils.graphs import count_launch
 from . import _build
+from ._build import raise_on
 
 UNIT_ROWS = 4          # group rows of `cols` per gather unit
 UNITS_PER_BLOCK = 32   # gather units per 768-ref block
@@ -286,13 +287,6 @@ def resident_ctas(tile, any_hit=False, device=None):
              "occupancy query of the sweep")
     props = torch.cuda.get_device_properties(device or 0)
     return per_sm.value, props.multi_processor_count
-
-
-def raise_on(lib, err: int, what: str):
-    """Raise when a kernel's C entry point returned a CUDA error."""
-    if err:
-        raise RuntimeError(f"{what} kernel launch failed: "
-                           f"{lib.hagrid_error_string(err).decode()}")
 
 
 def sweep_blocks(xt, cols, gidx, tile_of, tminb, tile, any_hit=False,

@@ -31,7 +31,9 @@ Kernel launches are counted where they happen: a wrapper calls
 `count_launch`, which adds to its counter at once, or, while a graph
 captures (`capturing`, for a `Captured` body or a graph captured
 elsewhere), to that graph's tally; each replay adds the tally again
-(`add_tally`). The program's spans (utils/profiling.py) go the same way:
+(`add_tally`). With tracing on, each launch also counts in the frame's
+counter "launches.<name>". The program's spans (utils/profiling.py) go
+the same way:
 a span opened during a capture is a pair of event nodes of the graph,
 which the tally keeps and each replay hands to the current frame.
 
@@ -62,10 +64,12 @@ _consts: dict = {}
 
 
 def count_launch(counter: dict, name: str):
-    """One launch of kernel `name`, counted in `counter`; during a
-    capture the graph's replays count it instead."""
+    """One launch of kernel `name`, counted in `counter` and in the
+    current frame's counter "launches.<name>" (utils/profiling.py);
+    during a capture the graph's replays count it instead."""
     if _tally is None:
         counter[name] += 1
+        profiling.count("launches." + name)
         return
     entry = _tally.setdefault((id(counter), name), [counter, name, 0])
     entry[2] += 1
@@ -110,6 +114,7 @@ def add_tally(tally):
     and its spans into the current frame."""
     for counter, name, n in tally:
         counter[name] += n
+        profiling.count("launches." + name, n)
     profiling.replay(getattr(tally, "spans", ()))
 
 

@@ -7,9 +7,11 @@ alike. Floats are compared at rtol 1e-6 (atol 1e-7 for values near 0,
 where a one-ulp difference of a summand dominates).
 """
 
+import ctypes
 import pathlib
 import subprocess
 import sys
+import types
 
 import jax.numpy as jnp
 import numpy as np
@@ -304,6 +306,129 @@ def test_segment_rows_compact_unique():
     for a, b in zip(got, want):
         np.testing.assert_array_equal(a.numpy(), np.asarray(b))
     assert 0 < int(got[1].sum()) < 400
+
+
+def _scatter_case(pattern):
+    """(n, idx, addends) of one add_at_drop pattern at Cornell size; each
+    addend a numpy array, a 1-element array (expanded) or a Python int."""
+    rng = np.random.default_rng(11)
+    small = lambda m: rng.integers(-3, 4, m) * (rng.random(m) < 0.6)  # noqa
+    if pattern == "all_dropped":
+        idx = rng.integers(40, 90, 700)
+        return 40, idx, [small(700), 1]
+    if pattern == "all_equal":
+        return 40, np.full(3000, 17), [small(3000), rng.integers(1, 4, 3000)]
+    if pattern == "sorted_runs":     # runs past a warp (32) and a block
+        idx = np.repeat([0, 3, 4, 9, 39, 40], [40, 300, 1, 1100, 33, 900])
+        return 40, idx, [small(idx.size), np.ones(idx.size, np.int64)]
+    if pattern == "random":
+        return 64, rng.integers(0, 80, 2500), [small(2500)]
+    if pattern == "fill":            # the run starts of expand_by_counts
+        offsets = np.cumsum(rng.integers(0, 3, 600))
+        return 500, offsets, [1, 0, -2]
+    if pattern == "expanded":
+        return 30, rng.integers(0, 35, 1000), [np.array([5]), np.array([0])]
+    if pattern == "empty":
+        return 25, np.zeros(0, np.int64), [np.zeros(0, np.int64), 1]
+    if pattern == "n1":
+        return 1, rng.integers(0, 3, 500), [small(500), 1]
+    # int64 sums past 2^31 (the sweep planner's threshold deltas)
+    idx = np.sort(rng.integers(0, 20, 900))
+    return 20, idx, [rng.integers(1 << 29, 1 << 30, 900).astype(np.int64)]
+
+
+class _HostScatterLib:
+    """csrc/scatter.cu's C entry point on host memory, by its documented
+    contract: what the wrapper hands the kernel, read back through the
+    pointers, strides and element sizes it passes."""
+
+    def __init__(self):
+        self.calls = []
+
+    def hagrid_scatter_add_drop(self, idx, idx_bytes, istride, vals,
+                                val_bytes, vstride, fill, m, n, out, sms,
+                                stream):
+        self.calls.append((idx_bytes, istride, vals is None, val_bytes,
+                           vstride, fill, m, n))
+        ct = {4: ctypes.c_int32, 8: ctypes.c_int64}
+
+        def read(ptr, size, count, stride):
+            a = np.ctypeslib.as_array(ctypes.cast(
+                ptr, ctypes.POINTER(ct[size])), ((count - 1) * stride + 1,))
+            return a[::stride] if stride else np.repeat(a, count)
+
+        k = read(idx, idx_bytes, m, istride).astype(np.int64)
+        v = (np.full(m, fill) if vals is None
+             else read(vals, val_bytes, m, vstride))
+        o = np.ctypeslib.as_array(ctypes.cast(
+            out, ctypes.POINTER(ct[val_bytes])), (n,))
+        keep = (k >= 0) & (k < n)
+        np.add.at(o, k[keep], v[keep].astype(o.dtype))
+        return 0
+
+
+@pytest.mark.parametrize("idx_dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("pattern", ["all_dropped", "all_equal",
+                                     "sorted_runs", "random", "fill",
+                                     "expanded", "empty", "n1", "i64_sums"])
+def test_add_at_drop_contract_and_dispatch(monkeypatch, pattern, idx_dtype):
+    """add_at_drop against numpy's bincount: the plain version (CPU
+    tensors, float addends) and the kernel's wrapper, whose arguments a
+    host copy of the kernel's contract reads back; integer addends off the
+    CPU take the kernel, the rest index_add_ (a loader that raises shows
+    the plain path never reaches it)."""
+    from hagrid_tpu_torch.ops import _build
+
+    def no_kernel():
+        raise AssertionError("the plain path loaded the kernels")
+
+    monkeypatch.setattr(_build, "load", no_kernel)
+    n, idx_np, addends = _scatter_case(pattern)
+    idx = torch.as_tensor(idx_np.astype(np.int64)).to(idx_dtype)
+    for a in addends:
+        a_np = np.broadcast_to(np.asarray(a), idx_np.shape)
+        want = np.bincount(np.minimum(idx_np, n), weights=a_np,
+                           minlength=n + 1)[:n].astype(np.int64)
+        vals = (torch.as_tensor(a).expand(idx.shape) if np.ndim(a)
+                else int(a))
+        dtype = vals.dtype if torch.is_tensor(vals) else torch.int32
+        got = segment.add_at_drop(n, idx, vals)
+        assert got.dtype == dtype and got.shape == (n,)
+        np.testing.assert_array_equal(got.numpy(), want)
+        if torch.is_tensor(vals):    # float addends: index_add_ as well
+            gotf = segment.add_at_drop(n, idx, vals.double())
+            np.testing.assert_array_equal(gotf.numpy(), want)
+
+        lib = _HostScatterLib()
+        monkeypatch.setattr(_build, "load", lambda: lib)
+        monkeypatch.setattr(torch.cuda, "current_stream",
+                            lambda dev=None: types.SimpleNamespace(
+                                cuda_stream=0))
+        monkeypatch.setattr(torch.cuda, "get_device_properties",
+                            lambda dev=None: types.SimpleNamespace(
+                                multi_processor_count=132))
+        before = segment.launches["scatter_add_drop"]
+        got = segment.add_at_drop_kernel(n, idx, vals)
+        assert got.dtype == dtype
+        np.testing.assert_array_equal(got.numpy(), want)
+        launched = segment.launches["scatter_add_drop"] - before
+        assert launched == len(lib.calls) == int(idx_np.size > 0)
+        if torch.is_tensor(vals) and lib.calls:  # expanded: stride 0
+            assert lib.calls[0][4] == (0 if np.size(a) == 1 else 1)
+        monkeypatch.setattr(_build, "load", no_kernel)
+
+    took = []                                    # the dispatch rule
+    for path in ("add_at_drop_kernel", "add_at_drop_plain"):
+        monkeypatch.setattr(segment, path,
+                            lambda n, i, v, path=path: took.append(path))
+    for dev in ("cpu", "meta"):
+        i = idx.to(dev)
+        for v in (1, torch.ones(idx.shape, dtype=torch.int64, device=dev),
+                  torch.ones(idx.shape, dtype=torch.int32, device=dev),
+                  torch.ones(idx.shape, device=dev)):
+            segment.add_at_drop(n, i, v)
+    assert took == ["add_at_drop_plain"] * 4 + ["add_at_drop_kernel"] * 3 + [
+        "add_at_drop_plain"]
 
 
 @pytest.fixture(scope="module")

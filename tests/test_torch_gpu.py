@@ -616,6 +616,90 @@ def test_irregular_build_on_card_equals_cpu(cuda, seed, params):
         assert torch.equal(getattr(on, k).cpu(), getattr(off, k)), k
 
 
+def _scatter_inputs(case, dev):
+    """(n, idx i64, [addends]) of one scatter pattern at the builds'
+    sizes; an addend is an i64 tensor (cast to each addend type), a
+    1-element tensor (expanded) or a Python int."""
+    rng = np.random.default_rng(19)
+    t = lambda a: torch.as_tensor(np.asarray(a, np.int64), device=dev)  # noqa
+    small = lambda m: t(rng.integers(-3, 4, m) * (rng.random(m) < 0.6))  # noqa
+    if case == "all_dropped":
+        return 1000, t(rng.integers(1000, 5000, 300_000)), [small(300_000)]
+    if case == "all_equal":
+        return 1000, t(np.full(700_000, 417)), [small(700_000), 1]
+    if case == "sorted_runs":    # runs past a warp, a warp's span and a block
+        lens = rng.choice([1, 31, 33, 100, 600, 5000, 70_000], 300)
+        keys = np.sort(rng.choice(50_000, 300, replace=False))
+        idx = np.concatenate([np.repeat(keys, lens), np.full(2_000_000,
+                                                             50_000)])
+        live = (idx < 50_000).astype(np.int64)
+        return 50_000, t(idx), [t(live), small(idx.size)]
+    if case in ("random", "graphed", "counted"):
+        return 100_000, t(rng.integers(0, 120_000, 2_000_000)), [
+            t(rng.integers(-1000, 1000, 2_000_000))]
+    if case == "fill":           # expand_by_counts' run starts
+        offsets = np.cumsum(rng.integers(0, 3, 1_000_000))
+        return 1_200_000, t(offsets), [1, -3]
+    if case == "expanded":
+        return 5000, t(rng.integers(0, 6000, 500_000)), [t([7]), t([0])]
+    if case == "empty":
+        return 10, t(np.zeros(0)), [t(np.zeros(0)), 1]
+    if case == "n1":
+        return 1, t(rng.integers(0, 3, 100_000)), [small(100_000)]
+    # sums past 2^31: i64 (the sweep planner's threshold deltas), and i32
+    # runs that wrap, as index_add_'s atomics do
+    return 300, t(np.sort(rng.integers(0, 310, 1_000_000))), [
+        t(rng.integers(1 << 29, 1 << 30, 1_000_000))]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("idx_dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("case", ["all_dropped", "all_equal", "sorted_runs",
+                                  "random", "fill", "expanded", "empty", "n1",
+                                  "i64_sums", "i32_wraps", "graphed",
+                                  "counted"])
+def test_scatter_add_drop_on_card(cuda, case, idx_dtype):
+    """csrc/scatter.cu's kernel equals index_add_ into n + 1 slots (the
+    plain version) bit for bit, for i32 and i64 indices and addends;
+    captured in a graph, each replay equals it too and counts one
+    launch."""
+    from hagrid_tpu_torch.ops import segment
+    n, idx, addends = _scatter_inputs(case, cuda)
+    idx = idx.to(idx_dtype)
+    for a in addends:
+        wide = {"i64_sums": (torch.int64,), "i32_wraps": (torch.int32,)}
+        for vdt in (wide.get(case, (torch.int32, torch.int64))
+                    if torch.is_tensor(a) else (torch.int64,)):
+            vals = a.to(vdt).expand(idx.shape) if torch.is_tensor(a) else a
+            want = segment.add_at_drop_plain(n, idx, vals)
+            before = segment.launches["scatter_add_drop"]
+            if case not in ("graphed", "counted"):
+                got = segment.add_at_drop(n, idx, vals)
+                torch.cuda.synchronize()
+                assert got.dtype == want.dtype and torch.equal(got, want)
+                assert segment.launches["scatter_add_drop"] - before == \
+                    int(idx.numel() > 0)
+                if case in wide:
+                    assert int(segment.add_at_drop_plain(
+                        n, idx, vals.long()).max()) > 1 << 31
+                continue
+            res = {}
+            static_i, static_v = idx.clone(), vals.clone()
+            replay = kernel_mt20.graphed(lambda: res.update(
+                out=segment.add_at_drop(n, static_i, static_v)), 1, cuda)
+            before = segment.launches["scatter_add_drop"]
+            for k in range(3):
+                perm = torch.randperm(idx.numel(), device=cuda)
+                static_i.copy_(idx[perm])
+                static_v.copy_(vals[perm] + k)
+                replay()
+                torch.cuda.synchronize()
+                if case == "graphed":
+                    assert torch.equal(res["out"], segment.add_at_drop_plain(
+                        n, static_i, static_v))
+            assert segment.launches["scatter_add_drop"] - before == 3
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("seed", [0, 1])
 def test_uniform_build_on_card_equals_cpu(cuda, seed):
