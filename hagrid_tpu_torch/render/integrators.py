@@ -153,40 +153,68 @@ def _jitter(n: int, generator: torch.Generator, device):
     return torch.rand((n, 2), generator=generator, device=device)
 
 
+def path_bounces(session, rays: Rays, hits, generator: torch.Generator,
+                 max_bounces: int = 4, sky=1.0, albedo: float = 0.7):
+    """The diffuse bounces of one path sample from its first wave's hits:
+    the radiance f32[n] of each of the n rays, in the caller's order.
+    Rays that missed see the constant sky `sky` (a float, or a tensor
+    that broadcasts to the n rays); each hit spawns a cosine-weighted
+    ray, and `max_bounces - 1` incoherent waves follow through
+    trace_sorted (one calibration key, "path", for all of them: later
+    waves hold fewer live rays, and one that outgrows the budget sets its
+    overflow flag, which poll_overflow reads and grows). Dead
+    rays get tmax = 0 and land in the binning's dead group, which the
+    planner skips; rays still alive after the last wave contribute
+    nothing. Each wave, the last included, takes one cosine_hemisphere
+    draw of all n rays from `generator`.
+
+    With tracing on (utils/profiling.py): span "path" around the call,
+    span "path.spawn" around each wave's hit points, normals, draw and
+    spawn, and counter "path.waves" for each incoherent wave traced."""
+    with profiling.span("path"):
+        n = rays.count
+        dev = rays.org.device
+        tri_n = session.grid.tris.n
+        radiance = torch.zeros((n,), dtype=torch.float32, device=dev)
+        throughput = torch.ones((n,), dtype=torch.float32, device=dev)
+        live = torch.ones((n,), dtype=torch.bool, device=dev)
+        for bounce in range(max_bounces):
+            if bounce:
+                profiling.count("path.waves")
+                hits = trace_sorted(session, rays, cal_key="path")
+            found = hits.tri_id >= 0
+            radiance = radiance + torch.where(live & ~found,
+                                              throughput * sky, 0.0)
+            live = live & found
+            throughput = throughput * albedo
+            with profiling.span("path.spawn"):
+                p, nrm, _ = hit_points_normals(rays, hits, tri_n)
+                d = cosine_hemisphere(nrm, generator)
+                tmax = torch.where(live, float("inf"), 0.0)
+                rays = _spawn(p, nrm, d, 0.0, tmax)
+        return radiance
+
+
 def path_trace(session, cam, width: int, height: int, seed: int = 0,
                spp: int = 1, max_bounces: int = 4, sky=1.0,
                albedo: float = 0.7):
     """Diffuse (Lambertian) path tracer with bounce compaction (BASELINE
     config #3): constant sky light `sky` (a float, or a tensor that
     broadcasts to the n = width x height pixels in block order on the
-    session's device), grey albedo `albedo`. Bounce waves keep their
-    pixel order into the origin sort; dead rays get tmax = 0 and land in
-    the binning's dead group, which the planner skips. Rays still alive
-    after max_bounces contribute nothing."""
+    session's device), grey albedo `albedo`. Each sample draws its pixel
+    jitter, traces the jittered primaries (coherent) and runs
+    path_bounces from their hits with the same generator."""
     dev = session.grid.bbox_lo.device
     n = width * height
     radiance = torch.zeros((n,), dtype=torch.float32, device=dev)
     gen = torch.Generator(device=dev).manual_seed(seed)
-    tri_n = session.grid.tris.n
     for _ in range(spp):
         jitter = _jitter(n, gen, dev)
         rays = primary_rays(cam, width, height, jitter=jitter,
                             order="block", device=dev)
-        throughput = torch.ones((n,), dtype=torch.float32, device=dev)
-        live = torch.ones((n,), dtype=torch.bool, device=dev)
-        for bounce in range(max_bounces):
-            # Bounces >= 1 share one calibration key; deeper bounces that
-            # outgrow it are caught by their overflow flag.
-            hits = (session.trace(rays, coherent=True) if bounce == 0
-                    else trace_sorted(session, rays, cal_key="path"))
-            found = hits.tri_id >= 0
-            radiance = radiance + torch.where(live & ~found,
-                                              throughput * sky, 0.0)
-            live = live & found
-            throughput = throughput * albedo
-            p, nrm, _ = hit_points_normals(rays, hits, tri_n)
-            d = cosine_hemisphere(nrm, gen)
-            tmax = torch.where(live, float("inf"), 0.0)
-            rays = _spawn(p, nrm, d, 0.0, tmax)
+        hits = session.trace(rays, coherent=True)
+        radiance = radiance + path_bounces(session, rays, hits, gen,
+                                           max_bounces=max_bounces, sky=sky,
+                                           albedo=albedo)
     img = _to_scanline(radiance / spp, width, height)[:, None].expand(-1, 3)
     return img.reshape(height, width, 3)

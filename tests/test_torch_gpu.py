@@ -356,6 +356,38 @@ def test_ao_and_path_on_card(cuda):
 
 
 @pytest.mark.gpu
+def test_path_bounces_on_card_match_cpu(cuda, monkeypatch):
+    """path_bounces from the primaries' hits at 64x64, 4 waves, on the
+    card and on the CPU from the same uniforms: the primary hits and
+    the radiance agree on >= 99.5% of pixels (a wave's spawn may round
+    differently on the card), and no wave overflows its budget."""
+    from hagrid_tpu_torch.render import sampling
+    v, f = scenes.cornell_box()
+    n, waves = 64 * 64, 4
+    gen = torch.Generator().manual_seed(2**31 + 9)
+    draws = [torch.rand((2, n), generator=gen) for _ in range(waves)]
+    out = []
+    for dev in (torch.device("cpu"), cuda):
+        s = RenderSession.create(Triangles.from_mesh(v, f, device=dev),
+                                 verts=v)
+        rays = primary_rays(scenes.cornell_camera(), 64, 64, order="block",
+                            device=dev)
+        hits = s.trace(rays, coherent=True)
+        it = iter(draws)
+        monkeypatch.setattr(sampling, "_draw",
+                            lambda count, g, d: tuple(next(it).to(d)))
+        rad = integrators.path_bounces(s, rays, hits,
+                                       torch.Generator(device=dev),
+                                       max_bounces=waves)
+        assert not s.poll_overflow(recalibrate=False)
+        out.append((hits.tri_id.cpu(), rad.cpu()))
+    (cpu_id, cpu_rad), (card_id, card_rad) = out
+    assert (cpu_id == card_id).float().mean() >= 0.995
+    assert (cpu_rad == card_rad).float().mean() >= 0.995
+    assert card_rad.max() > 0
+
+
+@pytest.mark.gpu
 def test_det_sweep_matches_plain_on_card(cuda):
     """K4 equals its plain version bit for bit (no FMA contraction), with
     every block swept, every block skipped and mixed thresholds."""

@@ -248,3 +248,42 @@ def test_kernel_launches_count_in_the_frame():
     profiling.close_frame()
     assert counter["k"] == 1 + 1 + 3 * 2
     assert profiling.frames()[-1]["counts"] == {"launches.k": 7}
+
+
+@pytest.mark.parametrize("traced", [False, True])
+def test_path_bounces_record_their_spans(traced):
+    """On: path_bounces opens span "path" once a call and "path.spawn"
+    once a wave (the primary's included), and counts max_bounces - 1
+    incoherent waves in "path.waves"; the radiance is bit-equal to the
+    untraced call's. Off: nothing is recorded."""
+    from hagrid_tpu_torch.core.types import Triangles
+    v, f = scenes.cornell_box()
+    s = RenderSession.create(Triangles.from_mesh(v, f, device="cpu"),
+                             verts=v)
+    rays = primary_rays(scenes.cornell_camera(), 16, 16, order="block",
+                        device="cpu")
+    hits = s.trace(rays, coherent=True)
+    s.poll_overflow()
+
+    def bounces():
+        return integrators.path_bounces(
+            s, rays, hits, torch.Generator().manual_seed(3), max_bounces=4)
+
+    want = bounces()
+    s.poll_overflow()
+    profiling.tracing(traced)
+    profiling.reset()
+    got = bounces()
+    s.poll_overflow()
+    records = profiling.frames()
+    profiling.tracing(False)
+    assert torch.equal(got, want)
+    if not traced:
+        assert records == []
+        return
+    (rec,) = records
+    sp = rec["spans"]
+    assert sp["path"]["n"] == 1 and sp["path.spawn"]["n"] == 4
+    assert rec["counts"]["path.waves"] == 3
+    assert sp["trace"]["n"] == 3 and sp["sort"]["n"] == 3
+    assert sp["path"]["device_ms"] >= sp["path.spawn"]["device_ms"]
