@@ -214,6 +214,19 @@ Phases, one line each (any failure exits non-zero before the result):
    replayed irregular warm rebuild (one for each call of the eager
    build), packet warm rebuild and packet primary frame ([scatter]
    lines, one {"scatter": ...} line).
+19. the running max / min kernel (S2, csrc/scan.cu) at the shapes the
+   main path gives it: every call of an eager packet build (none: its
+   run starts are a gather), of the compact planner on an AO wave (none:
+   any hit) and on a closest-hit bounce (the segmented suffix min),
+   recorded with its call site and input, run again through running_min
+   and through torch.cummin (the plain version) and bit-equal on every
+   call; the largest call timed in graphs of back-to-back calls against
+   the plain version and against a two-level plain scan (torch.cummin
+   over rows of 1024 values, then over the rows' carries), each under
+   the profiler, with the bound (the values read once and written once),
+   and not slower than either; the kernel's launches from zero over one
+   replayed packet warm rebuild, primary frame, AO wave and bounce wave
+   ([scan] lines, one {"running_scan": ...} line).
 The last two lines are the kernels' JSON record and
 {"ok": true, "device": {...}}. Needs a CUDA device; imports no JAX.
 """
@@ -405,6 +418,13 @@ SCATTER_REPLACES = ("hagrid_tpu/ops/segment.py:51 and the builds' other "
                     "scatters; no Pallas kernel)")
 SCATTER_CHAIN = 10
 SCATTER_ITERS = 5
+# Phase 19: the running scan kernel (S2), timed as phase 18 times S1.
+SCAN_SOURCE = "hagrid_tpu_torch/csrc/scan.cu"
+SCAN_REPLACES = ("hagrid_tpu/ops/sweep_trace.py:1093 associative_scan"
+                 "(minimum) (an XLA scan; no Pallas kernel)")
+SCAN_ROW = 1024         # the two-level plain scan's row
+SCAN_CHAIN = 10
+SCAN_ITERS = 5
 
 
 class SmokeFailure(Exception):
@@ -3251,13 +3271,17 @@ def march_entry(m, ref_launches, lockstep, build_launches, bench_launches):
         ptxas=m["ptxas"])
 
 
-def scatter_site():
-    """The call site of the scatter wrapper's caller: file:function of the
-    first frame outside ops/segment.py, and the segment.py helper it
-    called through (segment_starts, expand_by_counts, ...)."""
+SEGMENT_WRAPPERS = ("add_at_drop", "add_at_drop_kernel", "running_max",
+                    "running_min")
+
+
+def segment_site():
+    """The call site of a segment.py kernel wrapper's caller: file:function
+    of the first frame outside ops/segment.py, and the segment.py helper
+    it called through (segment_starts, expand_by_counts, ...)."""
     f, helper = sys._getframe(2), None
     while f is not None and f.f_globals.get("__name__") == segment.__name__:
-        if f.f_code.co_name not in ("add_at_drop", "add_at_drop_kernel"):
+        if f.f_code.co_name not in SEGMENT_WRAPPERS:
             helper = f.f_code.co_name
         f = f.f_back
     site = (f"{pathlib.Path(f.f_code.co_filename).name}:{f.f_code.co_name}"
@@ -3278,7 +3302,7 @@ def scatter_calls():
             v = vals.expand(idx.shape)
             v = (v[:1].clone().expand(idx.shape)
                  if v.numel() and v.stride(0) == 0 else v.clone())
-        calls.append((scatter_site(), n, idx.clone(), v))
+        calls.append((segment_site(), n, idx.clone(), v))
         return real(n, idx, vals)
 
     segment.add_at_drop_kernel = rec
@@ -3525,6 +3549,188 @@ def bench_phase(card, packet_hit, irregular_hit):
     return rec, launches
 
 
+@contextlib.contextmanager
+def scan_calls():
+    """Every call of the running scan kernel's wrappers within the block,
+    as [(site, op, x)] with a copy of x."""
+    calls = []
+    real = {op: getattr(segment, f"running_{op}_kernel")
+            for op in ("max", "min")}
+
+    def recorder(op):
+        def rec(x):
+            calls.append((segment_site(), op, x.clone()))
+            return real[op](x)
+        return rec
+
+    for op in real:
+        setattr(segment, f"running_{op}_kernel", recorder(op))
+    try:
+        yield calls
+    finally:
+        for op, fn in real.items():
+            setattr(segment, f"running_{op}_kernel", fn)
+
+
+def two_level_scan(x, op):
+    """The running max / min of 1-D x in plain torch across many blocks:
+    torch.cummax / cummin along rows of SCAN_ROW values (torch spreads the
+    rows over blocks), then along the rows' last values, each row
+    combined with the carry of the rows before it."""
+    n = x.numel()
+    m = -(-n // SCAN_ROW)
+    info = torch.iinfo(x.dtype)
+    fill = info.min if op == "max" else info.max
+    cum = torch.cummax if op == "max" else torch.cummin
+    both = torch.maximum if op == "max" else torch.minimum
+    rows = torch.cat([x, x.new_full((m * SCAN_ROW - n,), fill)]).view(
+        m, SCAN_ROW)
+    rows = cum(rows, 1).values
+    carry = cum(rows[:, -1], 0).values
+    carry = torch.cat([carry.new_full((1,), fill), carry[:-1]])
+    return both(rows, carry[:, None]).view(-1)[:n]
+
+
+def scan_record(site, op, x, dev, card):
+    """One call's shape timed: the kernel through running_max / min, its
+    plain version torch.cummax / cummin and the two-level plain scan, each
+    as SCAN_CHAIN calls in one graph (the kernel's workspace memset
+    included), each under the profiler; the byte bound (x read once, the
+    values written once)."""
+    def chain_ms(fn):
+        return cuda_ms(kernel_mt20.graphed(fn, SCAN_CHAIN, dev),
+                       iters=SCAN_ITERS, warmup=1) / SCAN_CHAIN
+
+    scan = getattr(segment, f"running_{op}")
+    plain = getattr(segment, f"running_{op}_plain")
+    nbytes_ = 2 * x.numel() * x.element_size()
+    rec = dict(
+        site=site, op=op, n=x.numel(),
+        dtype=str(x.dtype).replace("torch.", ""),
+        ms=chain_ms(lambda: scan(x)), plain_ms=chain_ms(lambda: plain(x)),
+        two_level_ms=chain_ms(lambda: two_level_scan(x, op)),
+        profiler_ms=kernel_profile_ms(lambda: scan(x),
+                                      "running_scan_kernel"),
+        plain_profiler_ms=kernel_profile_ms(
+            lambda: plain(x), "scan_innermost_dim_with_indices"),
+        bytes=nbytes_, bound_ms=nbytes_ / HBM_RATE * 1e3, bound_by="bytes")
+
+    def us(ms):
+        return f"{ms * 1e3:.1f} us" if ms else "no kernel seen"
+    print(f"[scan] {site}: running {op} of {rec['n']} {rec['dtype']}; "
+          f"kernel {us(rec['ms'])} a call (profiler {us(rec['profiler_ms'])},"
+          f" memset excluded), plain {us(rec['plain_ms'])} (profiler "
+          f"{us(rec['plain_profiler_ms'])}), two-level plain "
+          f"{us(rec['two_level_ms'])}; bound {us(rec['bound_ms'])} "
+          f"({nbytes_} bytes at {HBM_RATE / 1e12:.2f} TB/s) ({card})",
+          flush=True)
+    return rec
+
+
+def running_scan_phase(v, tris, rays, card, dev):
+    """Phase 19: the running scan kernel (S2) on the shapes the main path
+    gives it. Every call of an eager packet build (the session's
+    capacity) and of the compact planner on an AO wave and a closest-hit
+    bounce from the primaries' hits is recorded: only the bounce's
+    planner calls it. Each call is run again through running_min and
+    through the plain version and must be bit-equal, as must the two-level
+    plain scan; the largest call is timed (scan_record) and must be
+    faster than both plain scans; the kernel's launches are counted from
+    zero over one replayed packet warm rebuild, primary frame, AO wave
+    and bounce wave. Returns the kernels line's entry."""
+    t_phase = time.perf_counter()
+    s_pk = RenderSession.create(tris, structure="packet", verts=v)
+    hits = s_pk.trace(rays, coherent=True)
+    p, nrm, found = hit_points_normals(rays, hits, tris.n)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    ao = integrators.ao_rays(p, nrm, found,
+                             integrators.default_ao_distance(s_pk), gen)
+    bounce = integrators._spawn(p, nrm, cosine_hemisphere(nrm, gen), 0.0,
+                                torch.where(found, float("inf"), 0.0))
+    torch.cuda.synchronize()
+    recorded = {}
+    with scan_calls() as recorded["packet build"]:
+        grid = eager_rebuild(s_pk, tris)
+        torch.cuda.synchronize()
+    with scan_calls() as recorded["planner, AO wave"]:
+        trace_sweep(grid, ao, any_hit=True)
+        torch.cuda.synchronize()
+    with scan_calls() as recorded["planner, path bounce"]:
+        trace_sweep(grid, bounce)
+        torch.cuda.synchronize()
+    del grid
+
+    bad, n_calls, sites = [], 0, {}
+    for what, calls in recorded.items():
+        for site, op, x in calls:
+            got = getattr(segment, f"running_{op}")(x)
+            want = getattr(segment, f"running_{op}_plain")(x)
+            two = two_level_scan(x, op)
+            torch.cuda.synchronize()
+            n_calls += 1
+            if got.dtype != want.dtype or not torch.equal(got, want):
+                bad.append(f"{what}: {site}")
+            if not torch.equal(two, want):
+                bad.append(f"{what}: {site} (two-level plain scan)")
+            e = sites.setdefault(f"{what}: {site} {op}", dict(calls=0, n=0))
+            e["calls"] += 1
+            e["n"] = max(e["n"], x.numel())
+    print(f"[scan] {n_calls} recorded calls ("
+          + ", ".join(f"{k} {len(c)}" for k, c in recorded.items())
+          + f"), kernel against the plain version: "
+          f"{'bit-equal on every call' if not bad else f'DIFFER in {bad}'};"
+          f" calls and largest length by site {sites}", flush=True)
+    check(not bad, f"the scan kernel differs from its plain version in "
+          f"{bad}")
+    check(not recorded["packet build"] and not recorded["planner, AO wave"]
+          and recorded["planner, path bounce"],
+          f"expected scans in the closest-hit planner alone: "
+          f"{ {k: len(c) for k, c in recorded.items()} }")
+
+    site, op, x = max(recorded["planner, path bounce"],
+                      key=lambda c: c[2].numel())
+    rec = scan_record(f"planner, path bounce: {site}", op, x, dev, card)
+    check(rec["ms"] < min(rec["plain_ms"], rec["two_level_ms"]),
+          f"the scan kernel is not faster than the plain scans: {rec}")
+
+    # Launches from zero: one replay each (the first calls capture).
+    counts = {}
+    for what, fn in (("packet rebuild", lambda: s_pk.rebuild(tris)),
+                     ("packet primary frame",
+                      lambda: s_pk.trace(rays, coherent=True)),
+                     ("packet AO wave", lambda: integrators.trace_sorted(
+                         s_pk, ao, any_hit=True, cal_key="ao")),
+                     ("packet bounce wave", lambda: integrators.trace_sorted(
+                         s_pk, bounce, cal_key="path"))):
+        fn()
+        fn()
+        torch.cuda.synchronize()
+        reset_launches()
+        fn()
+        torch.cuda.synchronize()
+        counts[what] = segment.launches["running_scan"]
+    print(f"[scan] kernel launches from zero, one replay each: {counts}",
+          flush=True)
+    check(counts["packet bounce wave"] > 0
+          and not any(c for k, c in counts.items()
+                      if k != "packet bounce wave"),
+          f"the packet session's scan launches: {counts}")
+    check(not s_pk.poll_overflow(recalibrate=False), "phase 19 overflowed")
+    phase_s = time.perf_counter() - t_phase
+    print(f"[scan] phase 19 took {phase_s:.1f} s", flush=True)
+    print(json.dumps({"running_scan": dict(
+        card=card, calls=n_calls, record=rec, launches=counts,
+        phase_s=phase_s)}), flush=True)
+    return dict(
+        name="running_scan", route="cuda", source=SCAN_SOURCE,
+        replaces=SCAN_REPLACES, launches=counts["packet bounce wave"],
+        max_abs_err=0 if not bad else None, shape=rec["site"], n=rec["n"],
+        ms=rec["ms"], plain_ms=rec["plain_ms"],
+        two_level_ms=rec["two_level_ms"], profiler_ms=rec["profiler_ms"],
+        plain_profiler_ms=rec["plain_profiler_ms"], library_ms=None,
+        bound_ms=rec["bound_ms"], bound_by="bytes")
+
+
 def main(profile_path=False, with_variants=False) -> int:
     if not torch.cuda.is_available():
         print("FAIL: torch.cuda.is_available() is false; this smoke run "
@@ -3713,6 +3919,9 @@ def main(profile_path=False, with_variants=False) -> int:
     # 18. the integer drop-mode scatter (S1) at the main path's shapes
     scatter_kernel = scatter_phase(v, tris, rays, card, dev)
 
+    # 19. the running max / min (S2) at the main path's shapes
+    scan_kernel = running_scan_phase(v, tris, rays, card, dev)
+
     # 6. optional device-time breakdown, run last
     if profile_path is not False:
         for what, fn in (("frame", lambda: session.trace(rays, coherent=True)),
@@ -3742,7 +3951,9 @@ def main(profile_path=False, with_variants=False) -> int:
     # (the bench's processes, counted there from zero) on all three. No
     # single PyTorch call computes the sweep: library_ms is null. The
     # scatter's entry (phase 18): its time on the irregular rebuild's
-    # largest call, its launches a replayed irregular warm rebuild.
+    # largest call, its launches a replayed irregular warm rebuild; the
+    # running scan's (phase 19): the packet build's largest call, its
+    # launches a replayed packet warm rebuild.
     kernels = [
         dict(name="sweep_blocks", route="cuda", source=KERNEL_SOURCE,
              replaces=REPLACES,
@@ -3791,7 +4002,7 @@ def main(profile_path=False, with_variants=False) -> int:
         *micro_kernels,
         march_entry(march, ref_launches["wavefront_march"], ref_march,
                     build_launches, bench_launches["wavefront_march"]),
-        scatter_kernel]
+        scatter_kernel, scan_kernel]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -206,7 +206,9 @@ def _build(tris: Triangles, bbox_lo, bbox_hi, dims3, ref_capacity,
             d = torch.diff(p, prepend=torch.zeros((1,), **i32))
             return cumsum_i32(add_at_drop(cap, offsets, d))
 
-        run_start = torch.cummax(torch.where(markers > 0, j, 0), 0).values
+        # offsets never decrease, so the owner's offset is the last run
+        # start at or before j: the reference's running max of the markers.
+        run_start = offsets[tri_idx.long()]
         rank = j - run_start
         lo_ff = ff1(p_lo)
         sp_ff = ff1(p_sp)

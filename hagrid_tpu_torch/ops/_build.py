@@ -128,6 +128,10 @@ def load():
         lib.hagrid_scatter_add_drop.argtypes = [p, i, q, p, i, q, q, q, i, p,
                                                 i, p]
         lib.hagrid_scatter_add_drop.restype = i
+        lib.hagrid_running_scan_workspace.argtypes = [q, i]
+        lib.hagrid_running_scan_workspace.restype = q
+        lib.hagrid_running_scan.argtypes = [p, p, q, i, i, p, q, p]
+        lib.hagrid_running_scan.restype = i
         lib.hagrid_error_string.argtypes = [i]
         lib.hagrid_error_string.restype = ctypes.c_char_p
         _lib = lib

@@ -8,6 +8,11 @@ out-of-range semantics, which torch does not share:
   longer and cuts the overflow slot off. Integer addends on the card go
   to csrc/scatter.cu's kernel instead, which drops those rows and
   issues no atomic for them (`launches` counts its launches).
+- `running_max` / `running_min` are `torch.cummax(x, 0).values` /
+  `torch.cummin(x, 0).values`, the reference's associative_scan of
+  max / min. On the card they are csrc/scan.cu's device-wide scan of a
+  1-D int32 / int64 tensor (anything else raises): torch runs a 1-D
+  scan on one thread block and writes an index array nobody reads.
 - `trunc_i32` is XLA's saturating f32 -> i32 cast: torch wraps
   out-of-range values to INT_MIN, which turns a saturated upper bound
   into column 0. Values are clamped in float first (NaN -> 0).
@@ -30,7 +35,7 @@ _INTS = (torch.int32, torch.int64)
 
 # Kernel launches, counted where the kernel is launched (a captured
 # graph's at each replay: utils/graphs.count_launch).
-launches = {"scatter_add_drop": 0}
+launches = {"scatter_add_drop": 0, "running_scan": 0}
 
 
 def exclusive_scan(x: torch.Tensor) -> torch.Tensor:
@@ -99,6 +104,69 @@ def add_at_drop_plain(n: int, idx: torch.Tensor, vals) -> torch.Tensor:
     out = torch.zeros((n + 1,), dtype=vals.dtype, device=idx.device)
     out.index_add_(0, idx.clamp(max=n).long(), vals.expand(idx.shape))
     return out[:n]
+
+
+def running_max(x: torch.Tensor) -> torch.Tensor:
+    """Running max along axis 0: y[i] = max(x[:i + 1]). A CPU tensor
+    takes the plain version, any other the scan kernel, which takes 1-D
+    int32 / int64 and raises on the rest; both are exact."""
+    if x.device.type == "cpu":
+        return running_max_plain(x)
+    return running_max_kernel(x)
+
+
+def running_min(x: torch.Tensor) -> torch.Tensor:
+    """Running min along axis 0: y[i] = min(x[:i + 1]); dispatched as
+    `running_max`."""
+    if x.device.type == "cpu":
+        return running_min_plain(x)
+    return running_min_kernel(x)
+
+
+def running_max_kernel(x: torch.Tensor) -> torch.Tensor:
+    """`running_max` by csrc/scan.cu's kernel (1-D int32 / int64)."""
+    return _running_scan(x, True)
+
+
+def running_min_kernel(x: torch.Tensor) -> torch.Tensor:
+    """`running_min` by csrc/scan.cu's kernel (1-D int32 / int64)."""
+    return _running_scan(x, False)
+
+
+def _running_scan(x: torch.Tensor, is_max: bool) -> torch.Tensor:
+    """One launch of the scan kernel on the current stream: the output
+    and the workspace (tile counter, flags and the tiles' values, which
+    the entry point zeroes on the stream) come from torch's allocator."""
+    if x.dim() != 1:
+        raise ValueError(f"running scan: x must be 1-D, got {x.dim()}-D")
+    if x.dtype not in _INTS:
+        raise TypeError(f"running scan: the kernel takes int32 or int64, "
+                        f"got {x.dtype}")
+    x = x.contiguous()
+    y = torch.empty_like(x)
+    if x.numel() == 0:
+        return y
+    lib = _build.load()
+    nbytes = lib.hagrid_running_scan_workspace(x.numel(), x.element_size())
+    work = (torch.empty((nbytes,), dtype=torch.uint8, device=x.device)
+            if nbytes > 0 else None)
+    err = lib.hagrid_running_scan(
+        x.data_ptr(), y.data_ptr(), x.numel(), x.element_size(), int(is_max),
+        None if work is None else work.data_ptr(), nbytes,
+        torch.cuda.current_stream(x.device).cuda_stream)
+    _build.raise_on(lib, err, "running_scan")
+    count_launch(launches, "running_scan")
+    return y
+
+
+def running_max_plain(x: torch.Tensor) -> torch.Tensor:
+    """Plain version of `running_max`: torch.cummax's values."""
+    return torch.cummax(x, 0).values
+
+
+def running_min_plain(x: torch.Tensor) -> torch.Tensor:
+    """Plain version of `running_min`: torch.cummin's values."""
+    return torch.cummin(x, 0).values
 
 
 def trunc_i32(x: torch.Tensor) -> torch.Tensor:

@@ -47,7 +47,8 @@ from ..grid.packet import BIG as _BIG
 from ..grid.packet import PacketGrid, rays_to_x
 from ..utils import profiling
 from ..utils.graphs import const
-from .segment import add_at_drop, cumsum_i32, expand_by_counts, trunc_i32
+from .segment import (add_at_drop, cumsum_i32, expand_by_counts,
+                      running_min, trunc_i32)
 from .sweep_kernel import UNIT_ROWS, UNITS_PER_BLOCK, sweep_blocks
 
 _SUB = 4        # ray quarters per tile (tighter union rects)
@@ -569,7 +570,7 @@ def _segmented_suffix_min(v, seg_last):
     running min restarts at each segment."""
     flag = seg_last.flip(0)
     shift = torch.cumsum(flag.to(torch.int64), 0) << 32
-    run = torch.cummin(v.flip(0).to(torch.int64) - shift, 0).values
+    run = running_min(v.flip(0).to(torch.int64) - shift)
     return (run + shift).to(torch.int32).flip(0)
 
 
@@ -712,15 +713,15 @@ def _plan_items2(per_ray, per_tile, cs_tab, n_tab, lo_tab, rs, rowinfo, ka,
     roff_t = cumsum_i32(rows_t) - rows_t
     last_i = (roff_t + rows_t - 1).clamp(0, rowcap - 1).long()
     first_i = roff_t.clamp(0, rowcap - 1).long()
-    tile_units = torch.where(rows_t > 0, (ex + cnt)[last_i] - ex[first_i], 0)
+    ex_first = ex[first_i]
+    tile_units = torch.where(rows_t > 0, (ex + cnt)[last_i] - ex_first, 0)
     tile_pad, tile_base = _block_pad(tile_units)
     demand = tile_base[-1] + tile_pad[-1]
-    # ex never decreases, so the running max of the tile-boundary ex values
-    # is the current tile's first ex.
-    isb = torch.ones((rowcap,), dtype=torch.bool, device=dev)
-    isb[1:] = tile_i[1:] != tile_i[:-1]
-    first_ex = torch.cummax(torch.where(isb, ex, 0), 0).values
-    rows_off = _take(tile_base, tile_i) + (ex - first_ex)
+    # Rows lie tile by tile and ex never decreases, so a row's tile's first
+    # ex, the reference's running max of the tile-boundary ex values, is
+    # ex at the tile's first row (rows past the total: the last tile's,
+    # whose first row is the total when it has none).
+    rows_off = _take(tile_base, tile_i) + (ex - _take(ex_first, tile_i))
     out = _pack_units(lo_g, thr_row, rows_off, tile_base, tile_units, demand,
                       nt, bcap, dead_idx)
     return out + (demand, total_rows > rowcap, total_rows)

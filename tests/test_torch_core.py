@@ -431,6 +431,124 @@ def test_add_at_drop_contract_and_dispatch(monkeypatch, pattern, idx_dtype):
         "add_at_drop_plain"]
 
 
+def _scan_case(pattern, dtype):
+    """One running-scan input (numpy int64, cast to `dtype` by the test);
+    the long ones span two or more of the kernel's tiles (8192 int32 or
+    4096 int64 values)."""
+    rng = np.random.default_rng(23)
+    info = np.iinfo(dtype)
+    if pattern == "empty":
+        return np.zeros(0, np.int64)
+    if pattern == "one":
+        return np.array([-7])
+    if pattern == "all_equal":
+        return np.full(9000, 5)
+    if pattern == "ascending":
+        return np.arange(-4000, 14000)
+    if pattern == "descending":
+        return np.arange(14000, -4000, -1)
+    if pattern == "random":
+        return rng.integers(-10**6, 10**6, 20_345)
+    if pattern == "extremes":
+        x = rng.integers(-5, 5, 8200)
+        x[rng.random(8200) < 0.1] = info.min
+        x[rng.random(8200) < 0.1] = info.max
+        return x
+    # the run starts of the packet build: slot j where a run begins, else 0
+    counts = rng.integers(0, 4, 3000)
+    cap = int(counts.sum()) + 50
+    offsets = np.cumsum(counts) - counts
+    markers = np.bincount(offsets, minlength=cap)[:cap]
+    return np.where(markers > 0, np.arange(cap), 0)
+
+
+class _HostScanLib:
+    """csrc/scan.cu's C entry points on host memory, by their documented
+    contract: the workspace size (0 for one 32 KiB tile of values or
+    less), and the scan read back through the pointers the wrapper
+    passes."""
+
+    def __init__(self):
+        self.calls = []
+
+    @staticmethod
+    def hagrid_running_scan_workspace(n, val_bytes):
+        tiles = -(-n // (32768 // val_bytes))
+        return ((16 + 4 * tiles + 15) // 16 * 16 + 2 * tiles * val_bytes
+                if tiles > 1 else 0)
+
+    def hagrid_running_scan(self, x, y, n, val_bytes, is_max, work,
+                            work_bytes, stream):
+        need = self.hagrid_running_scan_workspace(n, val_bytes)
+        assert work_bytes >= need and (work is not None) == (need > 0)
+        self.calls.append((n, val_bytes, is_max, work_bytes))
+        ct = {4: ctypes.c_int32, 8: ctypes.c_int64}[val_bytes]
+        src, dst = (np.ctypeslib.as_array(ctypes.cast(p, ctypes.POINTER(ct)),
+                                          (n,)) for p in (x, y))
+        (np.maximum if is_max else np.minimum).accumulate(src, out=dst)
+        return 0
+
+
+@pytest.mark.parametrize("op", ["max", "min"])
+@pytest.mark.parametrize("dtype", [np.int32, np.int64])
+@pytest.mark.parametrize("pattern", ["empty", "one", "all_equal",
+                                     "ascending", "descending", "random",
+                                     "extremes", "run_starts"])
+def test_running_scan_contract_and_dispatch(monkeypatch, pattern, dtype, op):
+    """running_max / running_min against numpy's accumulate: the plain
+    version (CPU tensors, other dtypes), and the kernel's wrapper, whose
+    arguments a host copy of the kernel's contract reads back (one launch
+    counted for a non-empty input); CPU tensors take torch.cummax / cummin
+    (a loader that raises shows the plain path never reaches it), every
+    tensor off the CPU the kernel, whose wrapper refuses what the kernel
+    does not take (2-D, float, int16) before it loads."""
+    from hagrid_tpu_torch.ops import _build
+
+    def no_kernel():
+        raise AssertionError("the plain path loaded the kernels")
+
+    monkeypatch.setattr(_build, "load", no_kernel)
+    x_np = _scan_case(pattern, dtype).astype(dtype)
+    want = (np.maximum if op == "max" else np.minimum).accumulate(x_np)
+    x = torch.as_tensor(x_np)
+    scan = getattr(segment, f"running_{op}")
+    got = scan(x)
+    assert got.dtype == x.dtype
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(scan(x.double()).numpy(), want)
+
+    lib = _HostScanLib()
+    monkeypatch.setattr(_build, "load", lambda: lib)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda dev=None: types.SimpleNamespace(cuda_stream=0))
+    kernel = getattr(segment, f"running_{op}_kernel")
+    before = segment.launches["running_scan"]
+    for xk in (x, torch.stack([x, x], 1)[:, 0]):     # a strided view too
+        got = kernel(xk)
+        assert got.dtype == x.dtype and got.shape == x.shape
+        np.testing.assert_array_equal(got.numpy(), want)
+    assert segment.launches["running_scan"] - before == len(lib.calls) == (
+        2 * int(x_np.size > 0))
+    assert all(c[1] == x.element_size() and c[2] == int(op == "max")
+               for c in lib.calls)
+    monkeypatch.setattr(_build, "load", no_kernel)
+    with pytest.raises(ValueError):
+        kernel(x.reshape(1, -1))
+    for bad in (x.float(), x.to(torch.int16)):
+        with pytest.raises(TypeError):
+            kernel(bad)
+
+    took = []                                    # the dispatch rule
+    for path in (f"running_{op}_kernel", f"running_{op}_plain"):
+        monkeypatch.setattr(segment, path,
+                            lambda x, path=path: took.append(path))
+    for dev in ("cpu", "meta"):
+        for xd in (x, x.reshape(1, -1), x.float(), x.to(torch.int16)):
+            scan(xd.to(dev))
+    assert took == [f"running_{op}_plain"] * 4 + [
+        f"running_{op}_kernel"] * 4
+
+
 @pytest.fixture(scope="module")
 def cornell_grids():
     v, f = j_scenes.cornell_box()

@@ -732,6 +732,150 @@ def test_scatter_add_drop_on_card(cuda, case, idx_dtype):
             assert segment.launches["scatter_add_drop"] - before == 3
 
 
+_SCAN_TILE_BYTES = 32768   # csrc/scan.cu's tile, checked by its workspace
+
+
+def _scan_inputs(n, dtype, dev, seed):
+    """Three running-scan inputs of length n: noise on a rising trend, on
+    a falling one (the running max, then the min, moves in every tile),
+    and full-range values with the dtype's extremes."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    info = torch.iinfo(dtype)
+    step = torch.arange(n, device=dev, dtype=torch.int64) // 997
+    noise = torch.randint(-50, 50, (n,), generator=g, device=dev)
+    wide = torch.randint(info.min // 2, info.max // 2, (n,), generator=g,
+                         device=dev, dtype=torch.int64)
+    wide[torch.rand(n, generator=g, device=dev) < 1e-4] = info.min
+    wide[torch.rand(n, generator=g, device=dev) < 1e-4] = info.max
+    return [(noise + step).to(dtype), (noise - step).to(dtype),
+            wide.to(dtype)]
+
+
+@pytest.mark.gpu
+def test_running_scan_on_card(cuda, monkeypatch):
+    """csrc/scan.cu's running max / min equal torch.cummax / cummin's
+    values bit for bit on int32 and int64 at one element, a tile - 1, a
+    tile, a tile + 1, 2^20 + 3 and 3 x 10^6 (and on a view that is not
+    16-byte aligned); captured in a graph and replayed on new data, each
+    replay equals them and counts its launches; the packet build at the
+    full Sponza-scale size launches no scan and its run starts (a gather)
+    equal torch.cummax of its markers; the compact planner's outputs on
+    an AO wave and a closest-hit bounce are bit-equal with the kernel and
+    with the plain version forced."""
+    from hagrid_tpu_torch.ops import _build, segment
+    from hagrid_tpu_torch.ops import sweep_trace as st
+    lib = _build.load()
+    plain = {"max": segment.running_max_plain,
+             "min": segment.running_min_plain}
+    for dtype in (torch.int32, torch.int64):
+        size = torch.iinfo(dtype).bits // 8
+        tile = _SCAN_TILE_BYTES // size
+        assert lib.hagrid_running_scan_workspace(tile, size) == 0 < \
+            lib.hagrid_running_scan_workspace(tile + 1, size)
+        for n in (1, tile - 1, tile, tile + 1, (1 << 20) + 3, 3_000_000):
+            for x in _scan_inputs(n, dtype, cuda, seed=n):
+                for op, ref in plain.items():
+                    scan = getattr(segment, f"running_{op}")
+                    before = segment.launches["running_scan"]
+                    got = scan(x)
+                    torch.cuda.synchronize()
+                    assert segment.launches["running_scan"] == before + 1
+                    assert got.dtype == dtype and torch.equal(got, ref(x)), (
+                        n, dtype, op)
+                    if n > 1:
+                        assert torch.equal(scan(x[1:]), ref(x[1:])), (
+                            n, dtype, op, "offset view")
+
+    # A captured graph replayed on new data: the status is reset.
+    n = 3_000_000
+    static = {dt: torch.empty(n, dtype=dt, device=cuda)
+              for dt in (torch.int32, torch.int64)}
+    res = {}
+
+    def body():
+        for dt, x in static.items():
+            res[dt, "max"] = segment.running_max(x)
+            res[dt, "min"] = segment.running_min(x)
+    for dt, x in static.items():
+        x.copy_(_scan_inputs(n, dt, cuda, seed=0)[0])
+    replay = kernel_mt20.graphed(body, 1, cuda)
+    for k in range(1, 3):
+        for dt, x in static.items():
+            x.copy_(_scan_inputs(n, dt, cuda, seed=k)[k])
+        before = segment.launches["running_scan"]
+        replay()
+        torch.cuda.synchronize()
+        assert segment.launches["running_scan"] - before == 4
+        for (dt, op), got in res.items():
+            assert torch.equal(got, plain[op](static[dt])), (k, dt, op)
+
+    # The packet build: no scan; its run starts, a gather of the run
+    # offsets, equal the reference's running max of the markers.
+    from hagrid_tpu_torch.grid import packet as packet_mod
+    v, f = scenes.sponza_like()
+    tris = Triangles.from_mesh(v, f, device=cuda)
+    starts, real_add = [], packet_mod.add_at_drop
+
+    def add(n, idx, vals):
+        if isinstance(vals, int) and vals == 1:      # the run markers
+            starts.append((n, idx.clone()))
+        return real_add(n, idx, vals)
+    with monkeypatch.context() as mp:
+        mp.setattr(packet_mod, "add_at_drop", add)
+        before = segment.launches["running_scan"]
+        grid = build_packet(tris)
+        torch.cuda.synchronize()
+        assert segment.launches["running_scan"] == before
+    assert len(starts) == 3                          # one a major axis
+    for cap, offsets in starts:
+        markers = segment.add_at_drop(cap, offsets, 1)
+        tri_idx = (segment.cumsum_i32(markers) - 1).clamp(
+            0, offsets.numel() - 1)
+        j = torch.arange(cap, dtype=torch.int32, device=cuda)
+        assert torch.equal(offsets[tri_idx.long()], torch.cummax(
+            torch.where(markers > 0, j, 0), 0).values)
+
+    # The compact planner, kernel against plain: one scan a closest-hit
+    # plan (its segmented suffix min), none an any-hit one.
+    recorded = []                 # (scans it makes, its outputs) a call
+    real_plan = st._plan_items2
+
+    def plan(*a, **k):
+        out = real_plan(*a, **k)
+        any_hit = a[11]
+        recorded.append((0 if any_hit else 1, [o.clone() for o in out]))
+        return out
+    monkeypatch.setattr(st, "_plan_items2", plan)
+    rays = primary_rays(scenes.sponza_camera(), 512, 512, order="block",
+                        device=cuda)
+    prim = st.trace_sweep(grid, rays, coherent=True)
+    p, nrm, found = hit_points_normals(rays, prim, tris.n)
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    ao = integrators.ao_rays(p, nrm, found, 0.3, gen)
+    bounce = integrators._spawn(p, nrm, cosine_hemisphere(nrm, gen), 0.0,
+                                torch.where(found, float("inf"), 0.0))
+    runs = []
+    for forced in (False, True):
+        with monkeypatch.context() as mp:
+            if forced:
+                mp.setattr(segment, "running_min_kernel",
+                           segment.running_min_plain)
+            recorded.clear()
+            before = segment.launches["running_scan"]
+            st.trace_sweep(grid, ao, any_hit=True)
+            st.trace_sweep(grid, bounce)
+            torch.cuda.synchronize()
+            runs.append((list(recorded),
+                         segment.launches["running_scan"] - before))
+    (plans_k, planned_k), (plans_p, planned_p) = runs
+    assert planned_k == sum(c for c, _ in plans_k) > 0 and planned_p == 0
+    assert {c for c, _ in plans_k} == {0, 1}   # both waves planned
+    assert len(plans_k) == len(plans_p)
+    for i, ((_, a), (_, b)) in enumerate(zip(plans_k, plans_p)):
+        for j, (x, y) in enumerate(zip(a, b)):
+            assert torch.equal(x, y), (i, j)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("seed", [0, 1])
 def test_uniform_build_on_card_equals_cpu(cuda, seed):
