@@ -8,6 +8,9 @@ from __future__ import annotations
 
 import torch
 
+# Device constants made from host values, by (values, dtype, device).
+_consts: dict = {}
+
 
 def default_device() -> torch.device:
     """The CUDA device; raises when PyTorch sees none."""
@@ -34,3 +37,16 @@ def resolve(device=None, like=None) -> torch.device:
     if torch.is_tensor(like):
         return like.device
     return default_device()
+
+
+def const(values, dtype, device) -> torch.Tensor:
+    """torch.tensor(values) on `device`, made once per (values, dtype,
+    device) and shared: a copy from the host synchronises, which a
+    capture forbids, so the warm-up run before a capture makes it and
+    the capture reads it. values: nested tuples; never write to the
+    result."""
+    key = (values, dtype, torch.device(device))
+    t = _consts.get(key)
+    if t is None:
+        t = _consts[key] = torch.tensor(values, dtype=dtype, device=device)
+    return t

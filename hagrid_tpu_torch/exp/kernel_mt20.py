@@ -18,9 +18,9 @@ Each is given as ms, us per block and ps per ray-ref pair. On the card
 are timed between CUDA events (the reference's host-clock timing of
 blocking calls has no counterpart): the times are the device's, the
 kernel and the wrapper's small torch ops (about the same for all three),
-with no host time between them. The capture counts its launches in a
-tally (utils/graphs.capturing), which each replay adds to the wrappers'
-`launches`, so every launch on the card is counted. `skipped_host`
+with no host time between them. The capture counts its launches in its
+record (utils/profiling.capture), which each replay adds to the
+wrappers' `launches`, so every launch on the card is counted. `skipped_host`
 times the `skipped` calls back to back between CUDA events without a
 graph, as PR 3's record timed all three: its device work is small, so it
 reads the time the wrapper takes on the host to issue one call.
@@ -42,7 +42,7 @@ import torch
 from ..device import device_name, resolve
 from ..ops.micro_kernels import det_sweep
 from ..ops.sweep_kernel import UNITS_PER_BLOCK, sweep_blocks
-from ..utils import graphs
+from ..utils import profiling
 from ..utils.profiling import timed
 
 NEVER_DONE = -2**31 + 1   # no ray's bit pattern is <= it: sweep every block
@@ -84,13 +84,13 @@ def graphed(fn, chain, device):
         fn()
     torch.cuda.current_stream(device).wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    with graphs.capturing() as tally, torch.cuda.graph(graph):
+    with profiling.capture() as record, torch.cuda.graph(graph):
         for _ in range(chain):
             fn()
 
     def replay():
         graph.replay()
-        graphs.add_tally(tally)
+        profiling.replay(record)
     return replay
 
 

@@ -36,12 +36,13 @@ import numpy as np
 import torch
 
 from ..core.types import Triangles
+from ..device import const
 from ..ops.segment import (add_at_drop, compact_indices, cumsum_i32,
                            exclusive_scan, expand_by_counts, rows_to_segments,
                            segment_starts, sort_pairs, take)
 from ..utils import profiling
 from ..utils.config import BuildParams, density_dims
-from ..utils.graphs import const, eager
+from ..utils.graphs import eager
 from .uniform import (bin_refs, linear_cell, scene_bounds, scene_box,
                       tri_voxel_ranges)
 

@@ -32,10 +32,10 @@ import numpy as np
 import torch
 
 from ..core.types import Triangles, cross
+from ..device import const
 from ..ops.segment import (add_at_drop, cumsum_i32, expand_by_counts,
                            segment_starts, sort_pairs, trunc_i32)
 from ..utils.config import density_dims
-from ..utils.graphs import const
 from .uniform import tri_box_overlap, tri_voxel_ranges
 
 MT_COLS = 20       # per-ref precomputed row width

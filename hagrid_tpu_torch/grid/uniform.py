@@ -22,10 +22,11 @@ import numpy as np
 import torch
 
 from ..core.types import Triangles, cross
+from ..device import const
 from ..ops.segment import (expand_by_counts, segment_starts, sort_pairs,
                            trunc_i32)
 from ..utils.config import density_dims
-from ..utils.graphs import const, eager
+from ..utils.graphs import eager
 
 
 @dataclasses.dataclass

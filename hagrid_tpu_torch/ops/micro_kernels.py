@@ -46,7 +46,7 @@ import ctypes
 
 import torch
 
-from ..utils.graphs import count_launch
+from ..utils.profiling import count_launch
 from . import _build
 from ._build import raise_on
 from .sweep_kernel import (UNIT_ROWS, UNITS_PER_BLOCK, _check, _empty_out,
@@ -62,7 +62,7 @@ _COEFS = 20
 _ELEMS_PER_CHUNK = 1 << 22   # elements a plain version holds per tensor
 
 # Kernel launches, counted where each kernel is launched (a captured
-# graph's at each replay: utils/graphs.count_launch).
+# graph's at each replay: utils/profiling.count_launch).
 launches = {"det_sweep": 0, "dots_fp32": 0, "dots_fp32_fma": 0,
             "dots_bf16": 0, "dots_bf16x3": 0}
 

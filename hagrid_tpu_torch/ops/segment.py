@@ -27,14 +27,14 @@ import operator
 
 import torch
 
-from ..utils.graphs import count_launch
+from ..utils.profiling import count_launch
 from . import _build
 
 _I32_SAFE = float(1 << 30)
 _INTS = (torch.int32, torch.int64)
 
 # Kernel launches, counted where the kernel is launched (a captured
-# graph's at each replay: utils/graphs.count_launch).
+# graph's at each replay: utils/profiling.count_launch).
 launches = {"scatter_add_drop": 0, "running_scan": 0}
 
 

@@ -43,7 +43,7 @@ import ctypes
 
 import torch
 
-from ..utils.graphs import count_launch
+from ..utils.profiling import count_launch
 from . import _build
 from ._build import raise_on
 
@@ -61,7 +61,8 @@ CHUNK_TARGET = 16384
 PLAN_BINS = 64   # the plan kernel's size classes (kPlanBins)
 
 # Kernel launches per instance, counted where the kernel is launched; a
-# launch inside a captured graph (utils/graphs.py) counts at every replay.
+# launch inside a captured graph counts at every replay
+# (utils/profiling.count_launch).
 launches = {"sweep_blocks": 0, "sweep_blocks_anyhit": 0}
 
 

@@ -43,10 +43,10 @@ import numpy as np
 import torch
 
 from ..core.types import Hits, Rays
+from ..device import const
 from ..grid.packet import BIG as _BIG
 from ..grid.packet import PacketGrid, rays_to_x
 from ..utils import profiling
-from ..utils.graphs import const
 from .segment import (add_at_drop, cumsum_i32, expand_by_counts,
                       running_min, trunc_i32)
 from .sweep_kernel import UNIT_ROWS, UNITS_PER_BLOCK, sweep_blocks

@@ -41,11 +41,12 @@ import numpy as np
 import torch
 
 from ..core.types import Hits, Rays, Triangles
+from ..device import const
 from ..grid import irregular, packet, uniform
 from ..ops.sweep_trace import trace_frame, trace_sweep
 from ..utils import profiling
 from ..utils.config import BuildParams
-from ..utils.graphs import Graphs, const
+from ..utils.graphs import Graphs
 
 _STRUCTURES = ("packet", "irregular", "uniform")
 # Ceiling on the calibrated block budget: the frame's transient arrays

@@ -11,7 +11,7 @@ of its static input buffers (none, if it reads all it needs in place)
 that returns a tuple of tensors:
 - on the card, its first call copies the caller's tensors into the
   buffers, runs the body once eagerly on a side stream (which loads the
-  kernels and makes the constants of `const`), captures it into a
+  kernels and makes the constants of `device.const`), captures it into a
   `torch.cuda.CUDAGraph` and replays it once; later calls copy and
   replay. A capture that fails raises; nothing runs eagerly instead;
 - on CPU tensors the same calls copy into the buffers and run the body
@@ -27,15 +27,9 @@ every tensor the body reads in place instead of copying, so a table at
 other addresses gets a new capture, never a stale read; a slot holds one
 key at a time.
 
-Kernel launches are counted where they happen: a wrapper calls
-`count_launch`, which adds to its counter at once, or, while a graph
-captures (`capturing`, for a `Captured` body or a graph captured
-elsewhere), to that graph's tally; each replay adds the tally again
-(`add_tally`). With tracing on, each launch also counts in the frame's
-counter "launches.<name>". The program's spans (utils/profiling.py) go
-the same way:
-a span opened during a capture is a pair of event nodes of the graph,
-which the tally keeps and each replay hands to the current frame.
+A capture's kernel launches and spans go to its record
+(utils/profiling.py `capture`), which each replay adds again
+(`profiling.replay`).
 
 With tracing on, `Graphs.call` is span "graph.<slot>" (the input copies,
 the replay or the capture, the output clones), a capture span
@@ -49,86 +43,9 @@ replayed untraced.
 
 from __future__ import annotations
 
-import contextlib
-import gc
-
 import torch
 
 from . import profiling
-
-# The launch tally of the capture in progress ({(id, name): [counter,
-# name, n]}), or None.
-_tally = None
-# Device constants made from host values, by (values, dtype, device).
-_consts: dict = {}
-
-
-def count_launch(counter: dict, name: str):
-    """One launch of kernel `name`, counted in `counter` and in the
-    current frame's counter "launches.<name>" (utils/profiling.py);
-    during a capture the graph's replays count it instead."""
-    if _tally is None:
-        counter[name] += 1
-        profiling.count("launches." + name)
-        return
-    entry = _tally.setdefault((id(counter), name), [counter, name, 0])
-    entry[2] += 1
-
-
-class Tally(list):
-    """A capture's launches, (counter, name, n) each, and in `spans` the
-    program's spans it captured (utils/profiling.py)."""
-
-    spans = ()
-
-
-@contextlib.contextmanager
-def capturing():
-    """The block is a graph's capture: the launches counted inside it go
-    to a tally, which the block yields (a `Tally`, filled with (counter,
-    name, n) and its spans when the block ends) for `add_tally` at each
-    replay; no cyclic collection runs meanwhile (one can free tensors
-    whose release the capture refuses: a failed capture's leftovers did,
-    in a process that had caught its error; torch.cuda.graph collects
-    before the capture begins)."""
-    global _tally
-    if _tally is not None:
-        raise RuntimeError("a capture is already in progress")
-    tally = Tally()
-    _tally = {}
-    collecting = gc.isenabled()
-    gc.disable()
-    try:
-        with profiling.graph_spans() as spans:
-            yield tally
-    finally:
-        tally.extend(tuple(v) for v in _tally.values())
-        tally.spans = tuple(spans)
-        _tally = None
-        if collecting:
-            gc.enable()
-
-
-def add_tally(tally):
-    """One replay of a graph whose capture counted `tally`: its launches,
-    and its spans into the current frame."""
-    for counter, name, n in tally:
-        counter[name] += n
-        profiling.count("launches." + name, n)
-    profiling.replay(getattr(tally, "spans", ()))
-
-
-def const(values, dtype, device) -> torch.Tensor:
-    """torch.tensor(values) on `device`, made once per (values, dtype,
-    device) and shared: a copy from the host synchronises, which a
-    capture forbids, so the warm-up run before a capture makes it and
-    the capture reads it. values: nested tuples; never write to the
-    result."""
-    key = (values, dtype, torch.device(device))
-    t = _consts.get(key)
-    if t is None:
-        t = _consts[key] = torch.tensor(values, dtype=dtype, device=device)
-    return t
 
 
 def eager(slot, key, body, inputs, reads=(), fresh=True) -> tuple:
@@ -143,7 +60,7 @@ def _reads_key(reads) -> tuple:
 
 class Captured:
     """One body with its static input buffers, and on the card its graph
-    and the launches the graph holds."""
+    and what its capture recorded (launches and spans)."""
 
     def __init__(self, what, body, inputs, device=None):
         self.what = what
@@ -153,7 +70,7 @@ class Captured:
                                         device=x.device) for x in inputs)
         self.outputs = None
         self.graph = None
-        self.tally = ()
+        self.record = None      # the capture's (profiling.capture)
         self.capture_s = None   # seconds of the warm-up, capture, replay
 
     def __call__(self, inputs) -> tuple:
@@ -178,11 +95,8 @@ class Captured:
             self._capture()
         else:
             self.graph.replay()
-            self._count()
+            profiling.replay(self.record)
         return self.outputs
-
-    def _count(self):
-        add_tally(self.tally)
 
     def _capture(self):
         with profiling.clocked("graph.capture") as clock:
@@ -198,7 +112,7 @@ class Captured:
         cur.wait_stream(side)
         graph = torch.cuda.CUDAGraph()
         try:
-            with capturing() as tally, torch.cuda.graph(graph):
+            with profiling.capture() as record, torch.cuda.graph(graph):
                 out = tuple(self.body(*self.static))
         except RuntimeError as e:
             root = e
@@ -206,10 +120,10 @@ class Captured:
                 root = root.__context__
             raise RuntimeError(f"capture of {self.what} failed: "
                                f"{root}") from e
-        self.tally = tally
+        self.record = record
         self.graph, self.outputs = graph, out
         graph.replay()
-        self._count()
+        profiling.replay(record)
         torch.cuda.synchronize()
 
 

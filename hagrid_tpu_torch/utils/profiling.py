@@ -14,11 +14,20 @@ event, no profiler range, no host sync. On, a span takes the host clock,
 CUDA events on the current stream (once CUDA is initialised; else its
 device time is its host time) and a `torch.profiler.record_function`
 range "hagrid.<name>", so that a profiler trace shows it beside the
-kernels. A span opened while a graph captures (utils/graphs.py
-`capturing`) records its two events as nodes of the graph and no host
-range or time: each replay adds the pair to the frame (`replay`), so
-every replay times it. A graph replayed more than once in a frame shows
-its in-graph spans at the last replay's times, counted once a replay.
+kernels.
+
+A capture's record: a graph captured inside `capture()` (a `Captured`
+body of utils/graphs.py, or a graph captured elsewhere) keeps a
+`Record` of what ran inside the block, which `replay(record)` adds
+again at each replay of the graph, in one pass:
+- the kernel launches: a wrapper calls `count_launch`, which outside a
+  capture adds to its counter at once (and, tracing on, to the frame's
+  counter "launches.<name>"), and inside one to the record;
+- the spans: a span opened while a graph captures records its two
+  events as nodes of the graph and no host range or time; each replay
+  adds the pair to the frame, so every replay times it. A graph
+  replayed more than once in a frame shows its in-graph spans at the
+  last replay's times, counted once a replay.
 
 The records: `RenderSession.poll_overflow`, the session's frame boundary,
 closes the current frame (`close_frame`): one wait for the card, then
@@ -37,6 +46,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import dataclasses
+import gc
 import statistics
 import time
 
@@ -187,7 +197,7 @@ _FRAMES = 4096
 _frames: collections.deque = collections.deque(maxlen=_FRAMES)
 _frame = None     # the frame being recorded (_Frame), or None
 _stack = []       # the open host spans, (frame, row) each
-_capture = None   # the capture in progress's spans (_CaptureSpans), or None
+_capture = None   # the record of the capture in progress (Record), or None
 _pool = []        # timing events of closed frames' host spans, for reuse
 
 
@@ -212,12 +222,16 @@ class _Frame:
         self.profiled = False
 
 
-class _CaptureSpans(list):
-    """A capture's spans: (name, parent index in this list or -1 for the
-    span open at replay, event0, event1); `open` their stack."""
+class Record:
+    """What a graph's capture recorded, for `replay`: `launches`,
+    {(id(counter), name): [counter, name, n]}, and `spans`, (name,
+    parent index in this list or -1 for the span open at replay, event0,
+    event1) each; `open` the stack of the spans still open in the
+    capture."""
 
     def __init__(self):
-        super().__init__()
+        self.launches = {}
+        self.spans = []
         self.open = []
 
 
@@ -278,12 +292,13 @@ class _Span:
         self.t0 = time.perf_counter()
         return self
 
-    def _enter_graph(self, cap):
+    def _enter_graph(self, rec):
         self.events = (torch.cuda.Event(enable_timing=True, external=True),
                        torch.cuda.Event(enable_timing=True, external=True))
-        cap.open.append(len(cap))
-        cap.append((self.name, cap.open[-2] if len(cap.open) > 1 else -1,
-                    *self.events))
+        rec.open.append(len(rec.spans))
+        rec.spans.append((self.name,
+                          rec.open[-2] if len(rec.open) > 1 else -1,
+                          *self.events))
         self.events[0].record()
 
     def __exit__(self, *exc):
@@ -334,28 +349,54 @@ def recaptured(slot: str, changed: list, ms: float | None):
                                   "ms": ms})
 
 
+def count_launch(counter: dict, name: str):
+    """One launch of kernel `name`, counted in `counter` and, tracing on,
+    in the current frame's counter "launches.<name>"; during a capture
+    (`capture`) the graph's replays count it instead."""
+    if _capture is None:
+        counter[name] += 1
+        count("launches." + name)
+        return
+    entry = _capture.launches.setdefault((id(counter), name),
+                                         [counter, name, 0])
+    entry[2] += 1
+
+
 @contextlib.contextmanager
-def graph_spans():
-    """The block captures a graph: the spans opened in it become the
-    graph's event nodes, kept in the list the block yields (for `replay`
-    at each replay of the graph)."""
+def capture():
+    """The block captures a graph: the launches counted and the spans
+    opened inside it go to the `Record` the block yields (complete when
+    the block ends), for `replay` at each replay of the graph. No cyclic
+    collection runs meanwhile: one can free tensors whose release the
+    capture refuses (a failed capture's leftovers did, in a process that
+    had caught its error; torch.cuda.graph collects before the capture
+    begins)."""
     global _capture
-    spans = _CaptureSpans()
-    _capture = spans
+    if _capture is not None:
+        raise RuntimeError("a capture is already in progress")
+    rec = _capture = Record()
+    collecting = gc.isenabled()
+    gc.disable()
     try:
-        yield spans
+        yield rec
     finally:
         _capture = None
+        if collecting:
+            gc.enable()
 
 
-def replay(spans):
-    """One replay of a graph whose capture kept `spans`: their event
-    pairs join the current frame, under the span open now."""
-    if not _on or not spans:
+def replay(rec: Record):
+    """One replay of a graph whose capture recorded `rec`: its launches
+    to their counters (and the frame's), its spans' event pairs into the
+    current frame, under the span open now."""
+    for counter, name, n in rec.launches.values():
+        counter[name] += n
+        count("launches." + name, n)
+    if not _on or not rec.spans:
         return
     fr = _current()
     base, outer = len(fr.spans), _parent(fr)
-    for name, parent, e0, e1 in spans:
+    for name, parent, e0, e1 in rec.spans:
         fr.spans.append([name, base + parent if parent >= 0 else outer,
                          None, e0, e1, True])
 

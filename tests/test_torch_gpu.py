@@ -11,16 +11,23 @@ skip the suite's conftest (which sets JAX up):
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py -q
 """
 
+import dataclasses
+import json
+import pathlib
+import subprocess
+import sys
+
 import numpy as np
 import pytest
 import torch
 
 from hagrid_tpu_torch import oracle, scenes
-from hagrid_tpu_torch.core.camera import primary_rays
+from hagrid_tpu_torch.core.camera import block_index, primary_rays
 from hagrid_tpu_torch.core.types import Hits, Triangles
 from hagrid_tpu_torch.exp import kernel_mt20, mxu_micro
-from hagrid_tpu_torch.grid import irregular, uniform
+from hagrid_tpu_torch.grid import invariants, irregular, uniform
 from hagrid_tpu_torch.grid.packet import build_packet, rays_to_x
+from hagrid_tpu_torch.io.image import dhash, hamming, shade_eyelight
 from hagrid_tpu_torch.ops import micro_kernels as mk
 from hagrid_tpu_torch.ops import sweep_kernel as sk
 from hagrid_tpu_torch.ops.sweep_kernel import (launches, sweep_blocks,
@@ -1601,3 +1608,475 @@ def test_traced_spans_time_each_replay_on_card(cuda, structure):
         else:
             assert sp["march"]["device_ms"] > 0
             assert rec["counts"]["march.rays"] == 64 * 64
+
+
+# ------------------------------------------- the Sponza-scale scene, whole
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+
+
+def _sponza(device):
+    v, f = scenes.sponza_like()
+    return v, f, Triangles.from_mesh(v, f, device=device)
+
+
+@pytest.mark.gpu
+def test_sponza_eyelight_dhash_on_card(cuda):
+    """128x128 block-order primaries of the Sponza-scale scene through a
+    warm packet session on the card: tri ids equal the oracle's on more
+    than 99.9% of the pixels, and the eye-light render's dhash lies
+    within 6 bits of the oracle render's and of the JAX package's
+    (scenes.SPONZA_EYELIGHT_DHASH)."""
+    v, f, tris = _sponza(cuda)
+    s = RenderSession.create(tris, verts=v)
+    s.rebuild(tris)
+    rays = primary_rays(scenes.sponza_camera(), 128, 128, order="block",
+                        device=cuda)
+    hits = s.trace(rays, coherent=True)
+    want = oracle.closest_hit(rays, tris)
+    assert float((hits.tri_id == want.tri_id).float().mean()) > 0.999
+    pix, normals = block_index(128, 128), tris.n.cpu().numpy()
+
+    def render(h):
+        tri = np.empty(128 * 128, np.int32)
+        dirs = np.empty((128 * 128, 3), np.float32)
+        tri[pix] = h.tri_id.cpu().numpy()
+        dirs[pix] = rays.dir.cpu().numpy()
+        return dhash(shade_eyelight(tri, None, normals, dirs, 128, 128))
+
+    got = render(hits)
+    assert hamming(got, render(want)) <= 6
+    assert hamming(got, scenes.SPONZA_EYELIGHT_DHASH) <= 6
+    assert not s.poll_overflow(recalibrate=False)
+
+
+@pytest.mark.gpu
+def test_check_irregular_at_sponza_scale_on_card(cuda):
+    """The warm irregular grid of the Sponza-scale scene on the card passes
+    check_irregular on a sample of 2^20 voxels and (tri, voxel) and
+    (cell, voxel) pairs: ownership, completeness, expansion safety and
+    sorted ref lists."""
+    v, f, tris = _sponza(cuda)
+    s = RenderSession.create(tris, structure="irregular", verts=v)
+    s.rebuild(tris)
+    invariants.check_irregular(s.grid, sample=1 << 20)
+
+
+def _grid_diff(got, want, fields):
+    """The fields of two grids that are not bit-equal (floats by their
+    bits)."""
+    def bits(x):
+        return x.view(torch.int32) if x.dtype == torch.float32 else x
+    return [k for k in fields
+            if not torch.equal(bits(getattr(got, k)), bits(getattr(want, k)))]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("structure,params", [
+    ("irregular", BuildParams()), ("irregular", BuildParams.dynamic()),
+    ("uniform", BuildParams())], ids=["irregular", "irregular-dynamic",
+                                      "uniform"])
+def test_forced_overflow_recaptures_at_sponza_scale_on_card(cuda, structure,
+                                                            params):
+    """Warm rebuilds of the deformed Sponza-scale scene at t = 0.1, 0.2 and
+    0.3, the last with its cell-ref capacity (uniform: its ref capacity)
+    forced below its need: that span overflows, grows and is captured
+    anew with the spans that read its buffers (irregular: spans B-D;
+    uniform: its one span); every graphed grid equals the eager build
+    table by table, bit for bit, and the grid kept from the rebuild
+    before still equals its own frame's build."""
+    v, f = scenes.sponza_like()
+    anim = AnimatedScene(v, f, device=cuda)
+    s = RenderSession.create(anim.frame(0.0), params, structure=structure,
+                             verts=v)
+    forced = {}
+    if structure == "irregular":
+        fields = _IRREGULAR_TABLES + ("bbox_lo", "bbox_hi")
+        anew_want = ["cells", "finish", "merge"]
+
+        def force():
+            for k in s._caps:
+                if k != "rt":
+                    s._caps[k] = 1024
+
+        def eager(tris):
+            return irregular.build_irregular(tris, params,
+                                             top_dims=s.grid.top_dims)
+    else:
+        fields = ("cell_starts", "ref_ids", "total_refs", "bbox_lo",
+                  "bbox_hi")
+        anew_want = ["uniform"]
+
+        def force():
+            forced["cap"] = s.grid.ref_ids.shape[0] // 2
+            s.grid = dataclasses.replace(
+                s.grid, ref_ids=s.grid.ref_ids[:forced["cap"]])
+
+        def eager(tris):
+            return uniform.build_uniform(
+                tris, ref_capacity=forced.get("cap", s.grid.ref_ids.shape[0]),
+                dims=s.grid.dims)
+    kept, times = None, (0.1, 0.2, 0.3)
+    for t in times:
+        tris = anim.frame(t)
+        if t == times[-1]:
+            force()
+        before = {k: s._graphs.captured(k) for k in s._graphs.keys()}
+        s.rebuild(tris)
+        want = eager(tris)
+        assert _grid_diff(s.grid, want, fields) == [], t
+        if kept is not None:
+            assert _grid_diff(*kept, fields) == [], t
+        kept = (s.grid, want)
+    anew = sorted(str(k) for k in s._graphs.keys()
+                  if before.get(k) is not s._graphs.captured(k))
+    assert anew == anew_want
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kw", [dict(refine=True), dict(adaptive=True)],
+                         ids=["refine", "adaptive"])
+def test_option_grid_warm_rebuild_at_sponza_scale_on_card(cuda, kw):
+    """An option grid of the Sponza-scale scene on the card, then a warm
+    rebuild at the scene's bounds and the cold grid's capacity and dims:
+    no overflow, its rs, rowinfo and planes equal the cold build's, and
+    check_packet passes on 256 sampled tris."""
+    v, f, tris = _sponza(cuda)
+    g = build_packet(tris, **kw)
+    w = build_packet(tris, bbox=(v.min(0), v.max(0)),
+                     ref_capacity=g.ref_capacity, dims3=g.dims3, check=False,
+                     **kw)
+    assert not bool(w.overflowed)
+    for k in ("rs", "rowinfo", "planes"):
+        assert torch.equal(getattr(w, k), getattr(g, k)), k
+    invariants.check_packet(g, sample_tris=256)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("structure", ["packet", "irregular", "uniform"])
+def test_cli_on_card(cuda, tmp_path, structure):
+    """`python -m hagrid_tpu_torch.cli render | stats | bench --iters 3` on
+    the Sponza-scale scene at 256x256 on the card, as a user runs them
+    (three processes at once): each exits 0, render writes a PNG, bench
+    prints the reference's keys and the device."""
+    png = tmp_path / "cli.png"
+    cmds = {"render": ["--out", str(png)], "stats": [],
+            "bench": ["--iters", "3"]}
+    procs = {cmd: subprocess.Popen(
+        [sys.executable, "-m", "hagrid_tpu_torch.cli", cmd, "--scene",
+         "sponza", "--size", "256x256", "--structure", structure, *extra],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, cwd=ROOT)
+        for cmd, extra in cmds.items()}
+    out = {}
+    try:
+        for cmd, p in procs.items():
+            out[cmd] = (*p.communicate(timeout=400), p.returncode)
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for cmd, (_, err, rc) in out.items():
+        assert rc == 0, (cmd, err[-2000:])
+    assert png.stat().st_size > 0
+    bench = json.loads(out["bench"][0].strip().splitlines()[-1])
+    assert {"build_ms", "mrays_per_s", "grid", "device"} <= set(bench)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("flags", [
+    ["--structure", "irregular"], ["--structure", "uniform"],
+    ["--structure", "irregular", "--workload", "dynamic"]],
+    ids=["irregular", "uniform", "irregular-dynamic"])
+def test_bench_on_wavefront_structures_on_card(cuda, flags):
+    """bench_torch.py at its defaults (the Sponza-scale scene, 1024x1024)
+    on a wavefront structure: exit 0 with a value, the card named, no
+    workload, trace or grid overflow, the march kernel launched; with
+    every workload on the irregular grid, the hit fraction is the
+    irregular session's on the same frame."""
+    torch.cuda.empty_cache()            # leave the run the card's memory
+    out = subprocess.run([sys.executable, str(ROOT / "bench_torch.py"),
+                          *flags], capture_output=True, text=True,
+                         timeout=300, cwd=ROOT)
+    line = json.loads(out.stdout.strip().splitlines()[-1])
+    assert out.returncode == 0 and line["value"] is not None, (
+        line.get("error"), out.stderr[-2000:])
+    extra = line["extra"]
+    assert extra["device"] == torch.cuda.get_device_name(0)
+    assert not any(extra["workload_overflow"].values())
+    assert not extra["trace_overflow"] and not extra["grid_overflow"]
+    assert extra["launches"]["wavefront_march"] > 0
+    if flags == ["--structure", "irregular"]:
+        v, f, tris = _sponza(cuda)
+        s = RenderSession.create(tris, structure="irregular", verts=v)
+        rays = primary_rays(scenes.sponza_camera(), 1024, 1024,
+                            order="block", device=cuda)
+        hits = s.trace(rays, coherent=True)
+        assert extra["hit_fraction"] == round(
+            float((hits.tri_id >= 0).float().mean()), 4)
+
+
+@pytest.fixture(scope="module")
+def sponza_waves():
+    """The Sponza-scale scene on the card, as chip_smoke.py and the
+    benchmark's cells make its waves: a warm packet session, the
+    1024x1024 block-order primaries and their hits, AO wave 0 (one
+    sample a pixel at default_ao_distance) and path bounce 1 from those
+    hits, both origin-sorted as trace_sorted sorts them."""
+    from hagrid_tpu_torch.ops import sortrays
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernel has no CPU mode)")
+    v, f, tris = _sponza("cuda")
+    s = RenderSession.create(tris, verts=v)
+    s.rebuild(tris)
+    rays = primary_rays(scenes.sponza_camera(), 1024, 1024, order="block",
+                        device="cuda")
+    hits = s.trace(rays, coherent=True)
+    p, n, found = hit_points_normals(rays, hits, tris.n)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    ao = integrators.ao_rays(p, n, found,
+                             integrators.default_ao_distance(s), gen)
+    bounce = integrators._spawn(p, n, cosine_hemisphere(n, gen), 0.0,
+                                torch.where(found, float("inf"), 0.0))
+    g = s.grid
+
+    def sort(w):
+        return sortrays.sort_rays(w, g.bbox_lo, g.bbox_hi, bits=10,
+                                  origin_major=True)[0]
+    return dict(v=v, tris=tris, session=s, rays=rays, hits=hits, ao=ao,
+                ao_sorted=sort(ao), bounce_sorted=sort(bounce))
+
+
+def _probe(grid, rays, **kw):
+    """trace_sweep at a generous budget (16k blocks for a coherent wave,
+    512k otherwise, 4M live rows for the row budget), doubled until the
+    wave completes: (hits, bmax, rowmax)."""
+    from hagrid_tpu_torch.ops.sweep_trace import trace_sweep
+    coherent = kw.get("coherent", False)
+    rows = kw.get("compact", None)
+    bmax = 1 << (15 if coherent else 19)
+    rowmax = 1 << 22 if (not coherent if rows is None else rows) else None
+    for _ in range(4):
+        hits, ovf = trace_sweep(grid, rays, bmax=bmax, rowmax=rowmax,
+                                return_overflow=True, **kw)
+        if not bool(ovf):
+            return hits, bmax, rowmax
+        bmax, rowmax = 2 * bmax, rowmax and 2 * rowmax
+    raise AssertionError("the wave overflowed every probe budget")
+
+
+def _sample_against_oracle(rays, hits, tris, any_hit, k=4096, seed=0):
+    """k sampled rays against the brute-force oracle on the card: any
+    hit, hit/miss on more than 99.9%; closest hit, _check's thresholds
+    and tri ids on more than 99.5% of the rays both hit."""
+    idx = torch.as_tensor(np.random.default_rng(seed).choice(
+        rays.count, min(k, rays.count), replace=False), device=rays.org.device)
+    sub = rays.take(idx)
+    if any_hit:
+        want = oracle.any_hit(sub, tris)
+        assert ((hits.tri_id[idx] >= 0) == want).float().mean() > 0.999
+        return
+    want = oracle.closest_hit(sub, tris)
+    got = Hits(*(getattr(hits, k)[idx] for k in ("tri_id", "t", "u", "v")))
+    _check_on_card(got, want)
+    both = (got.tri_id >= 0) & (want.tri_id >= 0)
+    assert (got.tri_id[both] == want.tri_id[both]).float().mean() > 0.995
+
+
+def _against_other_hits(got, want):
+    """A wave's hits against other hits of the same rays: hit/miss and t
+    (rtol 1e-3) on more than 99.9% of the rays, tri ids on more than
+    99.5% of the rays both hit."""
+    _check_on_card(got, want)
+    both = (got.tri_id >= 0) & (want.tri_id >= 0)
+    assert (got.tri_id[both] == want.tri_id[both]).float().mean() > 0.995
+
+
+def _stream_against_plain(grid, stream, any_hit, bit_equal=False):
+    """The sweep kernel against its plain version on one round-0 stream,
+    over the rays of swept tiles: the launch plan equals its plain
+    version; any hit, hit/miss equal and no kernel hit closer than the
+    plain closest; closest hit, ids equal on 99.99% and t within rtol
+    1e-5 where they are. bit_equal: closest hit, ids and the bits of t,
+    u and v equal on every such ray."""
+    xt, gidx, tile_of, tminb, tile = stream
+    args = (xt, grid.cols, gidx, tile_of, tminb, tile)
+    nt = xt.shape[1] // tile - 1
+    chunk = sk.chunk_blocks(tile_of.numel())
+    for a, w in zip(sk.chunk_plan(tile_of, nt, chunk),
+                    sk.chunk_plan_plain(tile_of, nt, chunk)):
+        assert torch.equal(a, w)
+    got = sweep_blocks(*args, any_hit=any_hit)
+    ref = sweep_blocks_plain(*args, any_hit=any_hit)
+    swept = torch.zeros(nt + 1, dtype=torch.bool, device=xt.device)
+    swept[tile_of.long()] = True
+    rows = swept[:nt].repeat_interleave(tile)
+    m = rows.numel()
+    assert int(rows.sum()) > 0
+    if any_hit:
+        hit = got[1][:m][rows] >= 0
+        assert torch.equal(hit, ref[1][:m][rows] >= 0)
+        assert bool((got[0][:m][rows][hit] >= ref[0][:m][rows][hit]).all())
+    elif bit_equal:
+        assert torch.equal(got[1][:m][rows], ref[1][:m][rows])
+        for k in (0, 2, 3):
+            assert torch.equal(got[k][:m][rows].view(torch.int32),
+                               ref[k][:m][rows].view(torch.int32)), k
+    else:
+        same = got[1][:m][rows] == ref[1][:m][rows]
+        assert same.float().mean() >= 0.9999
+        hit = same & (got[1][:m][rows] >= 0)
+        torch.testing.assert_close(got[0][:m][rows][hit],
+                                   ref[0][:m][rows][hit], rtol=1e-5, atol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["primary-refine", "primary-adaptive",
+                                  "ao-refine", "ao-fine", "path-fine"])
+def test_option_streams_at_sponza_scale_on_card(sponza_waves, case):
+    """The packet grid's options on the Sponza-scale scene's waves: the
+    1024x1024 primaries on the refined and on the adaptive grid, AO wave
+    0 on the refined grid and with fine ray bins, path bounce 1 with
+    fine ray bins. Each wave launches the kernel, completes without
+    overflow and agrees with the oracle on 4096 sampled rays
+    (primaries: also with the default grid's frame); its round-0 stream
+    through the kernel agrees with the plain version
+    (_stream_against_plain)."""
+    from hagrid_tpu_torch.ops.sweep_trace import first_round_stream
+    w = sponza_waves
+    wave, opt = case.split("-")
+    grid = (build_packet(w["tris"], **{opt: True}) if opt != "fine"
+            else w["session"].grid)
+    rays = {"primary": w["rays"], "ao": w["ao_sorted"],
+            "path": w["bounce_sorted"]}[wave]
+    kw = dict(any_hit=wave == "ao", coherent=wave == "primary",
+              fine_bins=opt == "fine")
+    name = "sweep_blocks_anyhit" if kw["any_hit"] else "sweep_blocks"
+    before = launches[name]
+    hits, bmax, rowmax = _probe(grid, rays, **kw)
+    assert launches[name] > before
+    _sample_against_oracle(rays, hits, w["tris"], kw["any_hit"])
+    if wave == "primary":
+        _against_other_hits(hits, w["hits"])
+    _stream_against_plain(grid, first_round_stream(
+        grid, rays, bmax=bmax, rowmax=rowmax, **kw), kw["any_hit"])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["primary-compact", "ao-dense"])
+def test_planners_at_sponza_scale_on_card(sponza_waves, monkeypatch, case):
+    """The planner apart from the layout on the Sponza-scale scene: the
+    1024x1024 primaries through the compact planner, AO wave 0 through
+    the dense one. No call of sweep_blocks_plain, the kernel launched,
+    no overflow; the primaries agree with the default coherent frame
+    and the oracle, the dense AO wave's hit/miss equals the compact
+    planner's on every ray and agrees with the oracle; the round-0
+    stream through the kernel equals its plain version bit for bit."""
+    from hagrid_tpu_torch.ops.sweep_trace import (first_round_stream,
+                                                  trace_sweep)
+    w = sponza_waves
+    grid = w["session"].grid
+    primary = case == "primary-compact"
+    rays = w["rays"] if primary else w["ao_sorted"]
+    kw = dict(any_hit=not primary, coherent=primary, compact=primary)
+    _, bmax, rowmax = _probe(grid, rays, **kw)
+    name = "sweep_blocks" if primary else "sweep_blocks_anyhit"
+    with monkeypatch.context() as mp:
+        mp.setattr(sk, "sweep_blocks_plain", _refuse("sweep_blocks_plain"))
+        before = launches[name]
+        hits, ovf = trace_sweep(grid, rays, bmax=bmax, rowmax=rowmax,
+                                return_overflow=True, **kw)
+        torch.cuda.synchronize()
+    assert launches[name] > before and not bool(ovf)
+    _sample_against_oracle(rays, hits, w["tris"], not primary)
+    if primary:
+        _against_other_hits(hits, w["hits"])
+    else:
+        compact, _, _ = _probe(grid, rays, any_hit=True)
+        assert torch.equal(hits.tri_id >= 0, compact.tri_id >= 0)
+    _stream_against_plain(grid, first_round_stream(
+        grid, rays, bmax=bmax, rowmax=rowmax, **kw), not primary,
+        bit_equal=True)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("any_hit", [False, True], ids=["closest", "any"])
+@pytest.mark.parametrize("structure", ["irregular", "uniform"])
+def test_lockstep_at_sponza_scale_on_card(sponza_waves, monkeypatch,
+                                          structure, any_hit):
+    """trace_irregular / trace_uniform on the Sponza-scale scene's grids,
+    on the 1024x1024 primaries (closest hit) and on AO wave 0 (any hit):
+    one launch of the march kernel a call and never trace_wavefront,
+    trace_plain or segment_plain, no ray truncated; on 2^16 sampled rays
+    the tri ids and the bits of t/u/v equal trace_wavefront's on the
+    card, which truncates none either."""
+    from hagrid_tpu_torch.ops import wavefront
+    w = sponza_waves
+    s = RenderSession.create(w["tris"], structure=structure, verts=w["v"])
+    g = s.grid
+    rays = w["ao"] if any_hit else w["rays"]
+    if structure == "irregular":
+        entry, args = irregular.trace_irregular, (
+            g.tris, g.lookup, g.cell_starts, g.ref_ids, g.bbox_lo,
+            g.bbox_hi, g.fine_dims)
+    else:
+        entry, args = uniform.trace_uniform, (
+            g.tris, lambda vox: uniform.uniform_lookup(g, vox),
+            g.cell_starts, g.ref_ids, g.bbox_lo, g.bbox_hi, g.dims)
+    with monkeypatch.context() as mp:
+        for name in ("trace_wavefront", "trace_plain", "segment_plain"):
+            mp.setattr(wavefront, name, _refuse(name))
+        before = wavefront.launches["wavefront_march"]
+        got = entry(g, rays, any_hit=any_hit)
+        assert wavefront.launches["wavefront_march"] == before + 1
+        assert wavefront.last_trace_stats["truncated_rays"] == 0
+    idx = torch.as_tensor(np.random.default_rng(5).choice(
+        rays.count, 1 << 16, replace=False), device="cuda")
+    want = wavefront.trace_wavefront(rays.take(idx), *args, any_hit=any_hit)
+    assert wavefront.last_trace_stats["truncated_rays"] == 0
+    _assert_hits_bit_equal(
+        Hits(*(getattr(got, k)[idx] for k in ("tri_id", "t", "u", "v"))),
+        want, structure)
+    assert (got.tri_id >= 0).any()
+
+
+@pytest.mark.gpu
+def test_reference_options_at_sponza_scale_on_card(sponza_waves):
+    """The reference's options on the Sponza-scale scene's session:
+    trace_sorted of AO wave 0 with sort "origin", "octant" and False
+    (each its own budgets, none overflowed) agree on hit/miss with the
+    origin sort on more than 99.9% of the rays; default_ao_distance
+    from the host bounds equals the device read; ambient_occlusion at
+    that max_dist equals the default call bit for bit, and at half of
+    it darkens no pixel; path_trace(sky=2.0) on the Cornell box at
+    512x512, 4 bounces, is exactly twice the default image."""
+    w = sponza_waves
+    s, ao = w["session"], w["ao"]
+    sorts = {sort: integrators.trace_sorted(s, ao, any_hit=True, sort=sort,
+                                            cal_key=f"ao {sort}")
+             for sort in ("origin", "octant", False)}
+    assert not s.poll_overflow(recalibrate=False)
+    base = sorts["origin"].tri_id >= 0
+    for sort, h in sorts.items():
+        assert ((h.tri_id >= 0) == base).float().mean() > 0.999, sort
+    g = s.grid
+    dist = integrators.default_ao_distance(s)
+    assert dist == float((g.bbox_hi - g.bbox_lo).max()) * 0.1
+
+    def occlusion(max_dist=None):
+        gen = torch.Generator(device="cuda").manual_seed(11)
+        return integrators.ambient_occlusion(s, w["rays"], w["hits"], gen,
+                                             max_dist=max_dist)
+    ao_def = occlusion()
+    assert torch.equal(ao_def, occlusion(dist))
+    assert bool((occlusion(0.5 * dist) >= ao_def).all())
+    assert not s.poll_overflow(recalibrate=False)
+    cv, cf = scenes.cornell_box()
+    box = RenderSession.create(Triangles.from_mesh(cv, cf, device="cuda"),
+                               verts=cv)
+    p1 = integrators.path_trace(box, scenes.cornell_camera(), 512, 512,
+                                max_bounces=4)
+    p2 = integrators.path_trace(box, scenes.cornell_camera(), 512, 512,
+                                max_bounces=4, sky=2.0)
+    assert not box.poll_overflow(recalibrate=False)
+    assert float(p1.mean()) > 0 and torch.equal(p2, 2.0 * p1)

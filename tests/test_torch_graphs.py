@@ -32,7 +32,7 @@ from hagrid_tpu_torch.core.types import Triangles
 from hagrid_tpu_torch.grid.packet import build_packet
 from hagrid_tpu_torch.ops import sweep_kernel, sweep_trace
 from hagrid_tpu_torch.render.session import RenderSession
-from hagrid_tpu_torch.utils import graphs
+from hagrid_tpu_torch.utils import graphs, profiling
 
 CPU = "cpu"
 SIZE = 16                     # primaries: SIZE x SIZE, block order
@@ -336,48 +336,44 @@ def test_bodies_pass_the_capture_guard(cornell, monkeypatch):
 
 def test_launches_count_each_replay():
     """count_launch adds at once outside a capture; inside one it fills
-    the graph's tally, which each replay adds (the card's path; the
-    tally is set as a capture sets it)."""
+    the capture's record, which each replay adds (the card's path, as
+    Captured replays its graph)."""
     counter = {"k": 0}
-    graphs.count_launch(counter, "k")
+    profiling.count_launch(counter, "k")
     assert counter["k"] == 1
-    graphs._tally = {}
-    try:
-        graphs.count_launch(counter, "k")
-        graphs.count_launch(counter, "k")
-        tally = graphs._tally
-    finally:
-        graphs._tally = None
+    with profiling.capture() as record:
+        profiling.count_launch(counter, "k")
+        profiling.count_launch(counter, "k")
     assert counter["k"] == 1
-    cap = graphs.Captured("t", lambda x: (x,), (torch.zeros(1),))
-    cap.tally = tuple(tuple(v) for v in tally.values())
-    cap._count()
-    cap._count()
+    profiling.replay(record)
+    profiling.replay(record)
     assert counter["k"] == 5
 
 
 def test_capturing_tallies_a_graph_captured_elsewhere():
-    """graphs.capturing, as exp/kernel_mt20.graphed wraps a graph captured
-    outside a Graphs slot: the launches counted inside the block go to
-    its tally and not to the counters, each add_tally (one a replay)
-    adds the tally again, the cyclic collector is off inside the block
-    and back after it, and a capture inside a capture raises."""
+    """profiling.capture, as exp/kernel_mt20.graphed wraps a graph
+    captured outside a Graphs slot: the launches counted inside the
+    block go to its record and not to the counters, each replay (one a
+    replay of the graph) adds the record again, the cyclic collector is
+    off inside the block and back after it, and a capture inside a
+    capture raises."""
     counter = {"a": 0, "b": 0}
     collecting = gc.isenabled()
-    with graphs.capturing() as tally:
+    with profiling.capture() as record:
         assert not gc.isenabled()
         for _ in range(4):
-            graphs.count_launch(counter, "a")
-        graphs.count_launch(counter, "b")
-        with pytest.raises(RuntimeError), graphs.capturing():
+            profiling.count_launch(counter, "a")
+        profiling.count_launch(counter, "b")
+        with pytest.raises(RuntimeError), profiling.capture():
             pass
     assert gc.isenabled() == collecting
     assert counter == {"a": 0, "b": 0}
-    assert sorted((name, n) for _, name, n in tally) == [("a", 4), ("b", 1)]
+    assert sorted((name, n) for _, name, n in record.launches.values()) == [
+        ("a", 4), ("b", 1)]
     for _ in range(3):
-        graphs.add_tally(tally)
+        profiling.replay(record)
     assert counter == {"a": 12, "b": 3}
-    graphs.count_launch(counter, "a")
+    profiling.count_launch(counter, "a")
     assert counter["a"] == 13
 
 

@@ -234,17 +234,19 @@ def test_spans_nest_and_see_the_profiler():
 def test_kernel_launches_count_in_the_frame():
     """count_launch adds to the wrapper's counter and, tracing on, to the
     frame's counter "launches.<name>"; a launch made during a capture
-    counts only at each replay of the graph (add_tally), in both."""
+    counts only at each replay of the graph (profiling.replay), in
+    both."""
     counter = {"k": 0}
-    graphs.count_launch(counter, "k")            # tracing off
-    with graphs.capturing() as tally:
-        graphs.count_launch(counter, "k")
-        graphs.count_launch(counter, "k")
-    assert counter["k"] == 1 and list(tally) == [(counter, "k", 2)]
+    profiling.count_launch(counter, "k")         # tracing off
+    with profiling.capture() as record:
+        profiling.count_launch(counter, "k")
+        profiling.count_launch(counter, "k")
+    assert counter["k"] == 1 and \
+        list(record.launches.values()) == [[counter, "k", 2]]
     profiling.tracing(True)
-    graphs.count_launch(counter, "k")
+    profiling.count_launch(counter, "k")
     for _ in range(3):
-        graphs.add_tally(tally)
+        profiling.replay(record)
     profiling.close_frame()
     assert counter["k"] == 1 + 1 + 3 * 2
     assert profiling.frames()[-1]["counts"] == {"launches.k": 7}
