@@ -6,9 +6,9 @@ irregular build (hagrid_tpu/grid/irregular.py:118, 191, 277, 781-785),
 the uniform build's `_build` (grid/uniform.py:122) and `wave_deform`
 (render/dynamic.py:18).
 
-A `Graphs` cache holds one `Captured` body per slot. A body is a function
-of its static input buffers (none, if it reads all it needs in place)
-that returns a tuple of tensors:
+A `Graphs` cache holds `Captured` bodies by slot, one a key. A body is
+a function of its static input buffers (none, if it reads all it needs
+in place) that returns a tuple of tensors:
 - on the card, its first call copies the caller's tensors into the
   buffers, runs the body once eagerly on a side stream (which loads the
   kernels and makes the constants of `device.const`), captures it into a
@@ -24,8 +24,13 @@ next call overwrites them (`Graphs.buffers` finds the tensors to move).
 
 A key holds the body's static arguments and (data_ptr, shape, dtype) of
 every tensor the body reads in place instead of copying, so a table at
-other addresses gets a new capture, never a stale read; a slot holds one
-key at a time.
+other addresses gets a new capture, never a stale read. A slot keeps a
+capture for each of the last `KEEP` keys it was called with (each with
+its own memory pool, so a replay of one overwrites no other's buffers):
+a call with a kept key replays it, only a key the slot does not hold is
+captured, and past `KEEP` the least recently called key is dropped. So a
+capacity that moves between two buckets and back (the irregular build's
+compaction rows) replays the capture of each.
 
 A capture's kernel launches and spans go to its record
 (utils/profiling.py `capture`), which each replay adds again
@@ -35,9 +40,11 @@ With tracing on, `Graphs.call` is span "graph.<slot>" (the input copies,
 the replay or the capture, the output clones), a capture span
 "graph.capture" (whose host seconds are `capture_s`), and counters
 "captures.<slot>" and "recaptures.<slot>": a recapture is any capture of
-a slot after its first, whether the slot held another key or was
-dropped, recorded with the key positions that changed. A key holds the
-tracing switch, so a graph captured with its event nodes is never
+a slot after its first, whether the slot held other keys or was
+dropped, recorded with the key positions that changed since the slot's
+last call; and "graph_hits.<slot>": a replay of a kept capture whose key
+differs from the slot's last call (a recapture saved). A key holds
+the tracing switch, so a graph captured with its event nodes is never
 replayed untraced.
 """
 
@@ -46,6 +53,8 @@ from __future__ import annotations
 import torch
 
 from . import profiling
+
+KEEP = 4    # captures a slot keeps, one a key
 
 
 def eager(slot, key, body, inputs, reads=(), fresh=True) -> tuple:
@@ -128,37 +137,43 @@ class Captured:
 
 
 class Graphs:
-    """Captured bodies by slot, one key a slot."""
+    """Captured bodies by slot, up to KEEP keys a slot."""
 
     def __init__(self):
-        self._slots = {}     # slot -> (key, Captured)
-        self._last = {}      # slot -> the key of its last capture
+        # slot -> (the key of its last call, {key: Captured} least
+        # recently called first)
+        self._slots = {}
 
     def call(self, slot, key, body, inputs, reads=(), fresh=True) -> tuple:
         """body's outputs on `inputs`, from the slot's capture for `key`
         and the addresses of `reads` (captured now if the slot holds
-        another). fresh=False returns the capture's own output buffers,
-        which the next call of the slot overwrites."""
+        none). fresh=False returns the capture's own output buffers,
+        which the capture's next call overwrites."""
         key = (tuple(key), _reads_key(reads), profiling.tracing())
         name = slot if isinstance(slot, str) else slot[0]
         with profiling.span("graph." + name):
-            held = self._slots.get(slot)
-            if held is None or held[0] != key:
-                self._slots.pop(slot, None)
+            last, held = self._slots.get(slot, (None, {}))
+            cap = held.pop(key, None)
+            if cap is None:
+                while len(held) >= KEEP:          # the least recent goes
+                    del held[next(iter(held))]
                 cap = Captured((slot, key[0]), body, inputs,
                                (tuple(inputs) + tuple(reads))[0].device)
                 out = cap(inputs)
-                self._slots[slot] = (key, cap)
-                self._counted(slot, name, key, cap)
+                self._counted(name, last, key, cap)
             else:
-                out = held[1](inputs)
+                out = cap(inputs)
+                if last != key:
+                    profiling.count("graph_hits." + name)
+            held[key] = cap
+            self._slots[slot] = (key, held)
             return tuple(o.clone() for o in out) if fresh else out
 
-    def _counted(self, slot, name, key, cap):
-        """Count a capture of `slot` (tracing on), and a recapture with
-        the key positions that changed since its last capture."""
-        old = self._last.get(slot)
-        self._last[slot] = key
+    @staticmethod
+    def _counted(name, old, key, cap):
+        """Count a capture of slot `name` (tracing on), and a recapture
+        with the key positions that changed since the slot's last call,
+        `old`."""
         if not profiling.tracing():
             return
         profiling.count("captures." + name)
@@ -175,20 +190,29 @@ class Graphs:
                              else cap.capture_s * 1e3)
 
     def buffers(self) -> set:
-        """The storage addresses of every capture's input and output
-        buffers, which the capture's next call overwrites."""
+        """The storage addresses of every kept capture's input and output
+        buffers, which that capture's next call overwrites."""
         return {b.untyped_storage().data_ptr()
-                for _, cap in self._slots.values()
+                for _, held in self._slots.values() for cap in held.values()
                 for b in cap.static + (cap.outputs or ())}
 
     def drop(self, slot):
-        """Forget the slot's capture (and free its graph's memory)."""
-        self._slots.pop(slot, None)
+        """Forget every capture of the slot (and free their graphs'
+        memory); its next call is a recapture."""
+        if slot in self._slots:
+            self._slots[slot] = (self._slots[slot][0], {})
+
+    def kept(self, slot) -> dict:
+        """key -> Captured, each capture the slot keeps, least recently
+        called first."""
+        return dict(self._slots.get(slot, (None, {}))[1])
 
     def keys(self) -> dict:
-        """slot -> the key its capture holds."""
-        return {s: k for s, (k, _) in self._slots.items()}
+        """slot -> the key of its last call's capture."""
+        return {s: next(reversed(held))
+                for s, (_, held) in self._slots.items() if held}
 
     def captured(self, slot) -> Captured | None:
-        held = self._slots.get(slot)
-        return held and held[1]
+        """The capture of the slot's last call."""
+        held = self._slots.get(slot, (None, {}))[1]
+        return held[next(reversed(held))] if held else None

@@ -1532,6 +1532,49 @@ def test_graphed_structure_rebuilds_equal_eager_on_card(cuda, scene,
 
 
 @pytest.mark.gpu
+def test_alternating_compaction_replays_kept_captures_on_card(cuda,
+                                                              monkeypatch):
+    """Span D's compaction capacity moving between two buckets and back
+    on the card, with real captures: each warm rebuild's tables equal
+    build_irregular's at that capacity bit for bit, and the second visit
+    to a bucket replays its kept capture (a graph hit, no new
+    captures.finish)."""
+    from hagrid_tpu_torch.render.dynamic import wave_deform
+    v, f = scenes.random_soup(150, seed=0)
+    anim = AnimatedScene(v, f, device=cuda, deform=lambda x, t: wave_deform(
+        x, t, amplitude=0.01, freq=6.0))
+    params = BuildParams()
+    bucket, extra = irregular._cell_capacity, [0]
+    monkeypatch.setattr(irregular, "_cell_capacity",
+                        lambda n: bucket(n) + extra[0])
+    fields = _IRREGULAR_TABLES + ("bbox_lo", "bbox_hi")
+    profiling.tracing(True)
+    profiling.reset()
+    try:
+        s = RenderSession.create(anim.frame(0.0), params,
+                                 structure="irregular")
+        for i, t in enumerate((0.1, 0.2, 0.3, 0.4)):
+            extra[0] = 1024 * (i % 2)
+            moved = anim.frame(t)
+            s.rebuild(moved)
+            want = irregular.build_irregular(moved, params,
+                                             top_dims=s.grid.top_dims)
+            for k in fields:
+                got, ref = getattr(s.grid, k), getattr(want, k)
+                if got.dtype == torch.float32:
+                    got, ref = got.view(torch.int32), ref.view(torch.int32)
+                assert torch.equal(got, ref), (t, k)
+            profiling.close_frame()
+        counts = [r["counts"] for r in profiling.frames()]
+    finally:
+        profiling.tracing(False)
+        profiling.reset()
+    assert [c.get("captures.finish", 0) for c in counts] == [1, 1, 0, 0]
+    assert [c.get("graph_hits.finish", 0) for c in counts] == [0, 0, 1, 1]
+    assert s._graphs.captured("finish").graph is not None
+
+
+@pytest.mark.gpu
 def test_graphed_frame_equals_eager_on_card(cuda):
     """AnimatedScene.frame on the card replays one graph: bit-equal to
     wave_deform and Triangles.from_mesh run op by op, frame after
@@ -1680,11 +1723,13 @@ def test_forced_overflow_recaptures_at_sponza_scale_on_card(cuda, structure,
                                                             params):
     """Warm rebuilds of the deformed Sponza-scale scene at t = 0.1, 0.2 and
     0.3, the last with its cell-ref capacity (uniform: its ref capacity)
-    forced below its need: that span overflows, grows and is captured
-    anew with the spans that read its buffers (irregular: spans B-D;
-    uniform: its one span); every graphed grid equals the eager build
-    table by table, bit for bit, and the grid kept from the rebuild
-    before still equals its own frame's build."""
+    forced below its need: that span is captured at the forced capacity,
+    overflows and grows (uniform: to a capacity captured anew; irregular:
+    span B back at the reference's capacity, whose kept capture replays
+    unless the capacity is new to it, with spans C-D captured anew only
+    then); every graphed grid equals the eager build table by table, bit
+    for bit, and the grid kept from the rebuild before still equals its
+    own frame's build."""
     v, f = scenes.sponza_like()
     anim = AnimatedScene(v, f, device=cuda)
     s = RenderSession.create(anim.frame(0.0), params, structure=structure,
@@ -1692,7 +1737,6 @@ def test_forced_overflow_recaptures_at_sponza_scale_on_card(cuda, structure,
     forced = {}
     if structure == "irregular":
         fields = _IRREGULAR_TABLES + ("bbox_lo", "bbox_hi")
-        anew_want = ["cells", "finish", "merge"]
 
         def force():
             for k in s._caps:
@@ -1705,7 +1749,6 @@ def test_forced_overflow_recaptures_at_sponza_scale_on_card(cuda, structure,
     else:
         fields = ("cell_starts", "ref_ids", "total_refs", "bbox_lo",
                   "bbox_hi")
-        anew_want = ["uniform"]
 
         def force():
             forced["cap"] = s.grid.ref_ids.shape[0] // 2
@@ -1721,6 +1764,7 @@ def test_forced_overflow_recaptures_at_sponza_scale_on_card(cuda, structure,
         tris = anim.frame(t)
         if t == times[-1]:
             force()
+        held = {k: s._graphs.kept(k) for k in s._graphs.keys()}
         before = {k: s._graphs.captured(k) for k in s._graphs.keys()}
         s.rebuild(tris)
         want = eager(tris)
@@ -1728,9 +1772,15 @@ def test_forced_overflow_recaptures_at_sponza_scale_on_card(cuda, structure,
         if kept is not None:
             assert _grid_diff(*kept, fields) == [], t
         kept = (s.grid, want)
-    anew = sorted(str(k) for k in s._graphs.keys()
+    now = s._graphs.keys()
+    anew = sorted(str(k) for k in now
                   if before.get(k) is not s._graphs.captured(k))
-    assert anew == anew_want
+    if structure == "uniform":
+        assert anew == ["uniform"]
+    else:
+        assert 1024 in [k[0][3] for k in s._graphs.kept("cells")]
+        kept_b = now["cells"] in held["cells"]
+        assert anew == ([] if kept_b else ["cells", "finish", "merge"])
 
 
 @pytest.mark.gpu

@@ -389,3 +389,100 @@ def test_buffers_refuse_other_inputs():
     for bad in (torch.zeros(5), torch.zeros(4, dtype=torch.float64)):
         with pytest.raises(ValueError):
             cap((bad,))
+
+
+@pytest.fixture
+def traced():
+    """The program's tracing on inside the test alone, with no records."""
+    profiling.tracing(True)
+    profiling.reset()
+    yield
+    profiling.tracing(False)
+    profiling.reset()
+
+
+def _scaled(k):
+    """A body whose result shows its key: (x * k + 1,)."""
+    return lambda x: (x * k + 1,)
+
+
+def test_alternating_keys_replay_their_kept_captures(traced):
+    """Keys k1, k2, k1, k2 on one slot: two captures, one recapture and
+    two graph hits; each call's outputs are its body's on its key and its
+    inputs, the second visit to a key replays the first visit's capture,
+    and a capture's output buffers outlive the other key's replay."""
+    g = graphs.Graphs()
+    held, kept = {}, {}
+    for i, k in enumerate((2, 3, 2, 3)):
+        x = torch.arange(4, dtype=torch.float32) + i
+        out, = g.call("s", (k,), _scaled(k), (x,), fresh=False)
+        assert torch.equal(out, x * k + 1), (i, k)
+        assert held.setdefault(k, g.captured("s")) is g.captured("s")
+        assert g.keys()["s"][0] == (k,)
+        kept[k] = (out, x * k + 1)
+    for out, want in kept.values():     # each key's last call, unmoved
+        assert torch.equal(out, want)
+    profiling.close_frame()
+    (rec,) = profiling.frames()
+    assert rec["counts"] == {"captures.s": 2, "recaptures.s": 1,
+                             "graph_hits.s": 2}
+    assert [r["changed"] for r in rec["recaptures"]] == [
+        [["key[0]", "2", "3"]]]
+    assert rec["spans"]["graph.s"]["n"] == 4
+
+
+def test_buffers_and_drop_cover_every_kept_capture(traced):
+    """buffers() holds both kept captures' inputs and outputs, not only
+    the last call's; drop(slot) forgets both, and the slot's next call
+    captures anew, a recapture."""
+    g = graphs.Graphs()
+    x = torch.arange(4, dtype=torch.float32)
+    caps = []
+    for k in (2, 3):
+        g.call("s", (k,), _scaled(k), (x,))
+        caps.append(g.captured("s"))
+    assert caps[0] is not caps[1]
+    want = {b.untyped_storage().data_ptr()
+            for c in caps for b in c.static + c.outputs}
+    assert len(want) == 4 and g.buffers() == want
+    g.drop("s")
+    assert g.keys() == {} and g.captured("s") is None
+    assert g.buffers() == set()
+    out, = g.call("s", (2,), _scaled(2), (x,))
+    assert torch.equal(out, x * 2 + 1)
+    assert g.captured("s") not in caps
+    profiling.close_frame()
+    (rec,) = profiling.frames()
+    assert rec["counts"] == {"captures.s": 3, "recaptures.s": 2}
+
+
+@pytest.mark.parametrize("order,dropped", [
+    ((1, 2, 3, 4, 5), 1),            # the oldest is the least recent
+    ((1, 2, 3, 4, 1, 5), 2)],        # a replay makes k1 recent again
+    ids=["oldest", "least-recent"])
+def test_a_slot_keeps_its_last_keys(traced, order, dropped):
+    """Five distinct keys on one slot: it keeps graphs.KEEP (4) captures,
+    each of the other four replays (a graph hit), and the least recently
+    called key is the one captured again."""
+    assert graphs.KEEP == 4
+    g = graphs.Graphs()
+    x = torch.arange(4, dtype=torch.float32)
+    first = {}
+    for k in order:
+        g.call("s", (k,), _scaled(k), (x,))
+        first.setdefault(k, g.captured("s"))
+    assert len(g.kept("s")) == graphs.KEEP
+    assert sorted(k[0][0] for k in g.kept("s")) == sorted(
+        set(order) - {dropped})
+    for k in sorted(set(order) - {dropped}):
+        out, = g.call("s", (k,), _scaled(k), (x,))
+        assert torch.equal(out, x * k + 1)
+        assert g.captured("s") is first[k], k
+    out, = g.call("s", (dropped,), _scaled(dropped), (x,))
+    assert torch.equal(out, x * dropped + 1)
+    assert g.captured("s") is not first[dropped]
+    profiling.close_frame()
+    (rec,) = profiling.frames()
+    replays = len(order) - len(set(order))
+    assert rec["counts"] == {"captures.s": 6, "recaptures.s": 5,
+                             "graph_hits.s": 4 + replays}

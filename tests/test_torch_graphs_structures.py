@@ -241,11 +241,53 @@ def test_grown_compaction_recaptures_its_span_alone(monkeypatch):
     assert not _differ(s.grid, eager, IRREGULAR)
 
 
+def test_alternating_compaction_replays_its_kept_captures(monkeypatch):
+    """A compaction capacity that moves between two buckets and back, as
+    n_alive does when the deform sweeps across a bucket edge: over four
+    warm rebuilds of deformed frames each grid equals the eager build at
+    its capacity bit for bit, span D's capture for a bucket is the same
+    object when the bucket comes back (the other spans keep theirs), and
+    a grid kept from the first warm frame stays that frame's after both
+    captures have replayed."""
+    v, f = _mesh("soup")
+    # A fifth of the soup's wave, so that spans A-C keep their capacities.
+    kw = dict(WAVES["soup"], amplitude=0.01)
+    anim = dynamic.AnimatedScene(v, f, device=CPU, deform=functools.partial(
+        dynamic.wave_deform, **kw))
+    p = BuildParams()
+    s = RenderSession.create(anim.frame(0.0), p, structure="irregular")
+    bucket, extra = irregular._cell_capacity, [0]
+    monkeypatch.setattr(irregular, "_cell_capacity",
+                        lambda n: bucket(n) + extra[0])
+    finish, rows, kept, spans = {}, set(), None, None
+    for i, t in enumerate((0.1, 0.2, 0.3, 0.4)):
+        extra[0] = 1024 * (i % 2)
+        tris = anim.frame(t)
+        s.rebuild(tris)
+        eager = irregular.build_irregular(tris, p, top_dims=s.grid.top_dims)
+        assert not _differ(s.grid, eager, IRREGULAR), t
+        if kept is None:
+            kept = (s.grid, eager, {k: getattr(s.grid, k).clone()
+                                    for k in IRREGULAR})
+            spans = _spans(s)
+        assert finish.setdefault(i % 2, _spans(s)["finish"]) is \
+            _spans(s)["finish"], t
+        assert all(_spans(s)[k] is spans[k] for k in SPANS[:3]), t
+        rows.add(s.grid.alive.shape[0])
+    assert finish[0] is not finish[1] and len(rows) == 2
+    assert len(s._graphs.kept("finish")) == 2
+    g, eager, tables = kept
+    assert _differ(s.grid, eager, IRREGULAR), "t = 0.4 built t = 0.1's grid"
+    assert not _differ(g, eager, IRREGULAR)
+    assert all(torch.equal(getattr(g, k), x) for k, x in tables.items())
+
+
 def test_overflowed_cell_refs_recapture_and_match_reference():
     """A warm rebuild whose cell stage overflows the capacity it starts
-    at (forced small) runs span B again at the reference's capacity,
-    captured anew with the spans that read its buffers; span A keeps its
-    capture, and the grid equals the reference's."""
+    at (forced small, captured anew there) runs span B again at the
+    reference's capacity, a key the slot keeps: B replays its capture of
+    the last build, so the spans that read its buffers keep theirs, as
+    span A does, and the grid equals the reference's."""
     v, f = _mesh("cornell")
     tris = Triangles.from_mesh(v, f, device=CPU)
     jp, p = _params("default")
@@ -258,10 +300,10 @@ def test_overflowed_cell_refs_recapture_and_match_reference():
     s.rebuild(tris)
     now = s._graphs.keys()
     assert now["top"] == keys["top"] and _spans(s)["top"] is spans["top"]
-    # B ends at its old key, captured anew; C and D read its new buffers.
-    assert now["cells"] == keys["cells"]
-    assert all(_spans(s)[k] is not spans[k] for k in SPANS[1:])
-    assert all(now[k] != keys[k] for k in SPANS[2:])
+    # B ends at its old key and capture; C and D read the same buffers.
+    assert sorted(k[0][3] for k in s._graphs.kept("cells")) == [256, cap]
+    assert all(now[k] == keys[k] for k in SPANS[1:])
+    assert all(_spans(s)[k] is spans[k] for k in SPANS[1:])
     assert s._caps[("r2", first)] == cap
     jg = j_irr.build_irregular(JTris.from_mesh(v, f), jp,
                                top_dims=s.grid.top_dims)
